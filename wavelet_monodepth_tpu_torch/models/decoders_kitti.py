@@ -1,0 +1,240 @@
+"""KITTI wavelet decoder, dense and sparse (threshold-gated) in one module.
+
+Counterpart of `KittiWaveletDecoder` in
+`wavelet_monodepth_tpu/models/decoders_kitti.py:85-431`. Dense and sparse
+share one set of weights, held in `decoder`, an nn.ModuleList in the
+reference's order, so a reference `depth.pth` loads with `strict=True`:
+for i = 4..1: upconv_i_0, upconv_i_1, (waveconv_4_ll at i == 4),
+waveconv_i_pos, waveconv_i_neg.
+
+Output contract (NHWC), the JAX package's tuple keys:
+  ("disp", s)                       s in 0..3, disparity in [0, 1]
+  ("wavelets", s, "LL"/"LH"/"HL"/"HH")
+  ("wavelet_mask", s), ("lowres_mask", s), ...   sparse mode only
+  ("total_ops", s), ("total_ops", -1)            sparse mode only, (N,)
+
+`use_pallas` picks the sparse backend: False/"xla" masked dense (cuDNN,
+the oracle), True/"pallas" and "pallas2d" the tile-sparse CUDA kernel,
+launched 4 times per sparse scale (upconv_i_0, upconv_i_1, the pos and
+neg heads' 3x3). The "capacity", "compact" and "sites" backends and
+`use_polyphase` are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import sparse as sp
+from ..ops.convops import conv1x1, conv3x3
+from ..ops.wavelets import haar_idwt
+from .layers import ConvBlock, WaveConv, sparse_backend, upsample_concat
+
+Tensor = torch.Tensor
+
+NUM_CH_DEC = (16, 32, 64, 128, 256)
+
+
+def _idwt(yl: Tensor, yh: Tensor) -> Tensor:
+    return haar_idwt(yl, yh[..., 0:1], yh[..., 1:2], yh[..., 2:3])
+
+
+class KittiWaveletDecoder(nn.Module):
+    """DepthWaveProgressiveDecoder and its sparse twin in one module."""
+
+    def __init__(self, num_ch_enc: Sequence[int],
+                 use_polyphase: bool = False):
+        super().__init__()
+        if use_polyphase:
+            raise NotImplementedError(
+                "use_polyphase is not ported (ROADMAP.md, Queue 1 item 7: "
+                "upconv1_polyphase is a TPU-only workaround)")
+        self.num_ch_enc = tuple(num_ch_enc)
+        blocks = {}
+        cin = self.num_ch_enc[-1]
+        for i in range(4, 0, -1):
+            blocks[f"upconv_{i}_0"] = ConvBlock(cin, NUM_CH_DEC[i])
+            blocks[f"upconv_{i}_1"] = ConvBlock(
+                NUM_CH_DEC[i] + self.num_ch_enc[i - 1], NUM_CH_DEC[i])
+            if i == 4:
+                blocks["waveconv_4_ll"] = WaveConv(
+                    NUM_CH_DEC[4], NUM_CH_DEC[4] // 4, 1)
+            blocks[f"waveconv_{i}_pos"] = WaveConv(
+                NUM_CH_DEC[i], NUM_CH_DEC[i], 3)
+            blocks[f"waveconv_{i}_neg"] = WaveConv(
+                NUM_CH_DEC[i], NUM_CH_DEC[i], 3)
+            cin = NUM_CH_DEC[i]
+        self.decoder = nn.ModuleList(blocks.values())
+        self.blocks = dict(blocks)      # by name; registered via `decoder`
+
+    def forward(self, features: Sequence[Tensor],
+                thresh_ratio: Optional[float] = None,
+                sparse_scales: Sequence[int] = (1, 2, 3),
+                use_pallas=False,
+                mask_override: Optional[dict] = None) -> dict:
+        """mask_override: {scale i: (N, Hl, Wl, 1) raw mask} replaces the
+        threshold mask at those scales (dilations still run)."""
+        if thresh_ratio is None:
+            return self._dense(features)
+        return self._sparse(features, thresh_ratio, tuple(sparse_scales),
+                            use_pallas, mask_override)
+
+    def _coefficients(self, x: Tensor, i: int, want_ll: bool,
+                      in_mask: Optional[Tensor] = None,
+                      out_mask: Optional[Tensor] = None,
+                      backend: str = "xla"):
+        """(LL, HF) heads at scale i: yl = 2^i * sigmoid(ll-head),
+        yh = 2^(i-1) * (sigmoid(pos) - sigmoid(neg))."""
+        yl = None
+        if want_ll:
+            yl = (2.0 ** i) * self.blocks["waveconv_4_ll"](
+                x, in_mask, out_mask)
+        if backend == "xla":
+            yh = (2.0 ** (i - 1)) * self._paired_heads(x, i, in_mask,
+                                                       out_mask)
+            return yl, yh
+        pos = self.blocks[f"waveconv_{i}_pos"](
+            x, in_mask, out_mask, use_pallas=backend)
+        neg = self.blocks[f"waveconv_{i}_neg"](
+            x, in_mask, out_mask, use_pallas=backend)
+        return yl, (2.0 ** (i - 1)) * (pos - neg)
+
+    def _paired_heads(self, x: Tensor, i: int,
+                      in_mask: Optional[Tensor] = None,
+                      out_mask: Optional[Tensor] = None) -> Tensor:
+        """sigmoid(pos(x)) - sigmoid(neg(x)) with both heads fused into one
+        1x1 (C -> 2M) + leaky + block-diagonal 3x3 (2M -> 6), as the JAX
+        package's xla path runs them; the zero blocks add exact zeros."""
+        pos = self.blocks[f"waveconv_{i}_pos"]
+        neg = self.blocks[f"waveconv_{i}_neg"]
+        w1 = torch.cat([pos[0].conv.weight, neg[0].conv.weight])
+        b1 = torch.cat([pos[0].conv.bias, neg[0].conv.bias])
+        if in_mask is not None:
+            x = x * in_mask
+        h = F.leaky_relu(conv1x1(x, w1, b1), negative_slope=0.1)
+        if in_mask is not None:
+            h = h * in_mask
+        wp, wn = pos[2].conv.weight, neg[2].conv.weight
+        m = wp.shape[1]
+        w3 = wp.new_zeros((6, 2 * m, 3, 3))
+        w3[:3, :m] = wp
+        w3[3:, m:] = wn
+        b3 = torch.cat([pos[2].conv.bias, neg[2].conv.bias])
+        y = torch.sigmoid(conv3x3(h, w3, b3, "reflect"))
+        yh = y[..., :3] - y[..., 3:]
+        if out_mask is not None:
+            yh = yh * out_mask
+        return yh
+
+    @staticmethod
+    def _log_coeffs(outputs: dict, s: int, yl: Tensor, yh: Tensor):
+        outputs[("wavelets", s, "LL")] = yl
+        outputs[("wavelets", s, "LH")] = yh[..., 0:1]
+        outputs[("wavelets", s, "HL")] = yh[..., 1:2]
+        outputs[("wavelets", s, "HH")] = yh[..., 2:3]
+
+    def _dense(self, features: Sequence[Tensor]) -> dict:
+        outputs = {}
+        x = features[-1]
+        yl = None
+        for i in range(4, 0, -1):
+            x = self.blocks[f"upconv_{i}_0"](x)
+            x = self.blocks[f"upconv_{i}_1"](
+                upsample_concat(x, features[i - 1]))
+            new_yl, yh = self._coefficients(x, i, want_ll=(i == 4))
+            if i == 4:
+                yl = new_yl
+            self._log_coeffs(outputs, i - 1, yl, yh)
+            yl = _idwt(yl, yh)
+            outputs[("disp", i - 1)] = torch.clamp(yl / (2.0 ** (i - 1)),
+                                                   0, 1)
+        return outputs
+
+    def _sparse(self, features: Sequence[Tensor], thresh_ratio,
+                sparse_scales: tuple, use_pallas=False,
+                mask_override: Optional[dict] = None) -> dict:
+        backend = sparse_backend(use_pallas)
+        outputs = {}
+        x = features[-1]
+        yl = yh = None
+        # per-image op counts (N,): each image accounts like a reference
+        # batch-1 run
+        total_ops = x.new_zeros((x.shape[0],), dtype=torch.float32)
+        for i in range(4, 0, -1):
+            scale_ops = x.new_zeros((x.shape[0],), dtype=torch.float32)
+            if i == 4:
+                mask = torch.ones_like(x[..., :1])
+            elif mask_override is not None and i in mask_override:
+                mask = mask_override[i].to(x.dtype)
+                scale_ops += sp.ops_threshold(mask)
+            else:
+                mask = sp.wavelet_threshold_mask(yl, yh, thresh_ratio)
+                scale_ops += sp.ops_threshold(mask)
+            masks = sp.stage_masks(mask)
+            scale_ops += sp.ops_dilation(mask)
+
+            s = i - 1
+            outputs[("lowres_mask", s)] = masks["lowres"]
+            outputs[("upconv0_mask", s)] = masks["upconv0"]
+            outputs[("upsample_mask", s)] = masks["upsample"]
+            outputs[("upconv1_mask", s)] = masks["upconv1"]
+            outputs[("wavelet_mask", s)] = masks["wavelet"]
+
+            skip = features[i - 1]
+            ichn1 = NUM_CH_DEC[i] + skip.shape[-1]
+            if i in sparse_scales and i != 4:
+                for key in ("lowres", "upconv0", "upsample", "upconv1"):
+                    scale_ops += sp.ops_mask2idxmap(masks[key])
+                ichn0 = x.shape[-1]
+                x = self.blocks[f"upconv_{i}_0"](
+                    x, in_mask=masks["lowres"], out_mask=masks["upconv0"],
+                    use_pallas=backend)
+                scale_ops += sp.ops_sparse_conv3x3(
+                    sp.mask_count(masks["upconv0"]), ichn0, NUM_CH_DEC[i])
+                x = upsample_concat(x, skip, out_mask=masks["upsample"])
+                x = self.blocks[f"upconv_{i}_1"](
+                    x, out_mask=masks["upconv1"], use_pallas=backend)
+                scale_ops += sp.ops_sparse_conv3x3(
+                    sp.mask_count(masks["upconv1"]), ichn1, NUM_CH_DEC[i])
+                _, yh = self._coefficients(
+                    x, i, want_ll=False, in_mask=masks["upconv1"],
+                    out_mask=masks["wavelet"], backend=backend)
+                n_in = sp.mask_count(masks["upconv1"])
+                n_out = sp.mask_count(masks["wavelet"])
+                for _ in range(2):   # pos + neg heads
+                    scale_ops += sp.ops_sparse_conv1x1(
+                        n_in, NUM_CH_DEC[i], NUM_CH_DEC[i])
+                    scale_ops += sp.ops_sparse_conv3x3(
+                        n_out, NUM_CH_DEC[i], 3)
+            else:
+                scale_ops += sp.ops_dense_conv3x3(x.shape, NUM_CH_DEC[i])
+                x = self.blocks[f"upconv_{i}_0"](x)
+                ux_shape = (x.shape[0], 2 * x.shape[1], 2 * x.shape[2],
+                            ichn1)
+                scale_ops += sp.ops_dense_conv3x3(ux_shape, NUM_CH_DEC[i])
+                x = self.blocks[f"upconv_{i}_1"](upsample_concat(x, skip))
+                want_ll = (i == 4)
+                new_yl, yh = self._coefficients(x, i, want_ll=want_ll)
+                yh = yh * masks["wavelet"]
+                if want_ll:
+                    yl = new_yl
+                    scale_ops += sp.ops_dense_conv1x1(
+                        x.shape, NUM_CH_DEC[4], NUM_CH_DEC[4] // 4)
+                    scale_ops += sp.ops_dense_conv3x3(
+                        x.shape[:3] + (NUM_CH_DEC[4] // 4,), 1)
+                for _ in range(2):
+                    scale_ops += sp.ops_dense_conv1x1(
+                        x.shape, NUM_CH_DEC[i], NUM_CH_DEC[i])
+                    scale_ops += sp.ops_dense_conv3x3(x.shape, 3)
+
+            self._log_coeffs(outputs, s, yl, yh)
+            yl = _idwt(yl, yh)
+            scale_ops += sp.ops_idwt(yl.shape)
+            outputs[("disp", s)] = torch.clamp(yl / (2.0 ** s), 0, 1)
+            outputs[("total_ops", s)] = scale_ops
+            total_ops += scale_ops
+        outputs[("total_ops", -1)] = total_ops
+        return outputs

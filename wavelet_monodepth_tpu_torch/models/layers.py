@@ -1,0 +1,179 @@
+"""Decoder building blocks: Conv3x3, Conv1x1, ConvBlock, WaveConv and
+upsample_concat.
+
+Counterpart of `wavelet_monodepth_tpu/models/layers.py:42-164`, with the
+same `in_mask` / `out_mask` / `use_pallas` routing. Activations are NHWC.
+Submodule names reproduce the reference's state-dict keys (ConvBlock ->
+`.conv.conv`, WaveConv -> `Sequential(.0.conv, LeakyReLU, .2.conv)`), so
+reference checkpoints load with `strict=True`.
+
+`use_pallas` selects the sparse backend when an out_mask is present:
+False/"xla" = masked dense (the oracle, cuDNN), True/"pallas" = the
+row-stripe tile-skip kernel, "pallas2d" = the 2-D tile-skip kernel (both
+`ops/tile_sparse_conv.py`). The JAX package's "capacity" backend is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import convops
+from ..ops import tile_sparse_conv as tsc
+from ..ops.image import upsample_nearest2x
+
+Tensor = torch.Tensor
+
+_KERNEL_NONLIN = {F.elu: tsc.elu, torch.sigmoid: tsc.sigmoid}
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draws every conv of `module` from `generator` with the JAX
+    package's fan-in init (`models/layers.py:26-39`: weights
+    U(+-sqrt(3 / fan_in)), biases U(+-1 / sqrt(fan_in))); BN layers get
+    unit scale, zero shift and unit running variance. Draws on the CPU,
+    then copies to the module's device, so a seed gives the same weights
+    everywhere."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            for p, bound in ((m.weight, (3.0 / fan_in) ** 0.5),
+                             (m.bias, fan_in ** -0.5)):
+                if p is not None:
+                    p.copy_(torch.empty(p.shape).uniform_(
+                        -bound, bound, generator=generator))
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return module
+
+
+def sparse_backend(use_pallas) -> str:
+    """Normalise `use_pallas` to 'xla', 'pallas' or 'pallas2d'."""
+    backend = use_pallas if isinstance(use_pallas, str) else (
+        "pallas" if use_pallas else "xla")
+    if backend in ("capacity", "compact", "sites"):
+        raise NotImplementedError(
+            f"use_pallas={backend!r} is not ported yet (ROADMAP.md, Queue 1 "
+            "item 5: alternative sparse backends)")
+    if backend not in ("xla", "pallas", "pallas2d"):
+        raise ValueError(f"unknown sparse backend use_pallas={use_pallas!r}")
+    return backend
+
+
+class Conv3x3(nn.Module):
+    """Pad-then-conv 3x3; `.conv` holds the reference's nn.Conv2d."""
+
+    def __init__(self, in_features: int, features: int,
+                 pad_mode: str = "reflect"):
+        super().__init__()
+        self.pad_mode = pad_mode
+        self.conv = nn.Conv2d(in_features, features, 3)
+        self._hwio = None        # (weight version, HWIO copy) for the kernel
+
+    def hwio_weight(self) -> Tensor:
+        """The weight as contiguous HWIO for the kernel, kept between calls
+        (a copy per launch would add a kernel to each) and re-made when the
+        parameter changes (load_state_dict bumps its version)."""
+        w = self.conv.weight
+        key = (w.data_ptr(), w._version, w.device)
+        if self._hwio is None or self._hwio[0] != key:
+            self._hwio = (key, w.detach().permute(2, 3, 1, 0).contiguous())
+        return self._hwio[1]
+
+    def forward(self, x: Tensor, in_mask: Optional[Tensor] = None,
+                out_mask: Optional[Tensor] = None,
+                nonlin: Optional[Callable[[Tensor], Tensor]] = None,
+                use_pallas=False) -> Tensor:
+        if in_mask is not None:
+            x = x * in_mask
+        backend = sparse_backend(use_pallas)
+        if backend != "xla" and out_mask is not None:
+            fn = (tsc.conv3x3_tile_sparse_2d if backend == "pallas2d"
+                  else tsc.conv3x3_tile_sparse)
+            return fn(x.contiguous(), self.hwio_weight(),
+                      self.conv.bias.detach(),
+                      out_mask.contiguous(), self.pad_mode,
+                      _KERNEL_NONLIN.get(nonlin, nonlin))
+        y = convops.conv3x3(x, self.conv.weight, self.conv.bias,
+                            self.pad_mode)
+        if nonlin is not None:
+            y = nonlin(y)
+        if out_mask is not None:
+            y = y * out_mask
+        return y
+
+
+class Conv1x1(nn.Module):
+    """Pointwise conv; `.conv` holds the reference's nn.Conv2d."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_features, features, 1)
+
+    def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
+        y = convops.conv1x1(x, self.conv.weight, self.conv.bias)
+        if mask is not None:
+            y = y * mask
+        return y
+
+
+class ConvBlock(nn.Module):
+    """Conv3x3 + ELU."""
+
+    def __init__(self, in_features: int, features: int,
+                 pad_mode: str = "reflect"):
+        super().__init__()
+        self.conv = Conv3x3(in_features, features, pad_mode)
+
+    def forward(self, x: Tensor, in_mask: Optional[Tensor] = None,
+                out_mask: Optional[Tensor] = None,
+                use_pallas=False) -> Tensor:
+        return self.conv(x, in_mask, out_mask, nonlin=F.elu,
+                         use_pallas=use_pallas)
+
+
+class WaveConv(nn.Sequential):
+    """Sequential(Conv1x1, LeakyReLU(0.1), Conv3x3-reflect) coefficient
+    head. The intermediate is re-masked under sparsity (see
+    ops/sparse.py masked_waveconv)."""
+
+    def __init__(self, in_features: int, mid_features: int,
+                 out_features: int):
+        super().__init__(Conv1x1(in_features, mid_features),
+                         nn.LeakyReLU(0.1),
+                         Conv3x3(mid_features, out_features, "reflect"))
+
+    def forward(self, x: Tensor, in_mask: Optional[Tensor] = None,
+                out_mask: Optional[Tensor] = None,
+                final_nonlin: Optional[Callable[[Tensor], Tensor]]
+                = torch.sigmoid, use_pallas=False) -> Tensor:
+        if in_mask is not None:
+            x = x * in_mask
+        h = F.leaky_relu(self[0](x), negative_slope=0.1)
+        if in_mask is not None:
+            h = h * in_mask
+        if use_pallas and out_mask is not None:
+            return self[2](h, None, out_mask, nonlin=final_nonlin,
+                           use_pallas=use_pallas)
+        y = self[2](h)
+        if final_nonlin is not None:
+            y = final_nonlin(y)
+        if out_mask is not None:
+            y = y * out_mask
+        return y
+
+
+def upsample_concat(x: Tensor, skip: Optional[Tensor],
+                    out_mask: Optional[Tensor] = None) -> Tensor:
+    """Nearest-x2 + optional skip concat (+ mask)."""
+    y = upsample_nearest2x(x)
+    if skip is not None:
+        y = torch.cat([y, skip], dim=-1)
+    if out_mask is not None:
+        y = y * out_mask
+    return y

@@ -1,0 +1,90 @@
+"""ResNet18 encoder emitting the 5-level feature pyramid the decoders use.
+
+Counterpart of `wavelet_monodepth_tpu/models/resnet.py` (ResNet18 only).
+torchvision's topology and names under the reference's `encoder.` scope,
+so a reference `encoder.pth` loads into it: conv7x7/2 -> [relu feat0] ->
+maxpool3/2 -> layer1..4 at strides 4..32, BN eps 1e-5, input normalised
+as (x - 0.45) / 0.225. Takes NHWC images and returns NHWC features; inside,
+convs run on channels_last NCHW views.
+
+The JAX encoder folds the input normalisation into the stem's BN at
+inference (`resnet.py:107-140`), a TPU micro-optimisation equal to the
+plain form up to reassociation; the port keeps the plain form, so
+features agree with JAX to float32 rounding, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def num_ch_enc(num_layers: int) -> tuple[int, ...]:
+    _check_layers(num_layers)
+    return (64, 64, 128, 256, 512)
+
+
+def _check_layers(num_layers: int) -> None:
+    if num_layers != 18:
+        raise NotImplementedError(
+            f"ResNet{num_layers} is not ported yet: the port has ResNet18 "
+            "(ROADMAP.md, Queue 1 item 3: remaining KITTI models)")
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, cout, 1, stride, bias=False),
+                nn.BatchNorm2d(cout, eps=1e-5))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + identity)
+
+
+class _ResNet(nn.Module):
+    """torchvision's ResNet body without the classifier."""
+
+    def __init__(self, blocks=(2, 2, 2, 2)):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        chans = (64, 64, 128, 256, 512)
+        for stage, nb in enumerate(blocks):
+            layer = [BasicBlock(chans[stage] if b == 0 else chans[stage + 1],
+                                chans[stage + 1],
+                                (1 if stage == 0 else 2) if b == 0 else 1)
+                     for b in range(nb)]
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
+
+
+class ResnetEncoder(nn.Module):
+    """Returns [feat0 (H/2), feat1 (H/4), ..., feat4 (H/32)], NHWC.
+    BN follows the module's mode: call `.eval()` for inference."""
+
+    def __init__(self, num_layers: int = 18):
+        super().__init__()
+        _check_layers(num_layers)
+        self.num_ch_enc = num_ch_enc(num_layers)
+        self.encoder = _ResNet()
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        x = (x - 0.45) / 0.225
+        e = self.encoder
+        x = F.relu(e.bn1(e.conv1(x.permute(0, 3, 1, 2))))
+        feats = [x]
+        x = F.max_pool2d(x, 3, 2, 1)
+        for layer in (e.layer1, e.layer2, e.layer3, e.layer4):
+            x = layer(x)
+            feats.append(x)
+        return [f.permute(0, 2, 3, 1) for f in feats]
