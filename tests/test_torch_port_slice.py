@@ -49,18 +49,33 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.utils.maskgen",
     "wavelet_monodepth_tpu_torch.tools.torch_import",
     "wavelet_monodepth_tpu_torch.tools.infer",
+    "wavelet_monodepth_tpu_torch.ops.ssim",
+    "wavelet_monodepth_tpu_torch.ops.warp",
+    "wavelet_monodepth_tpu_torch.ops.augment",
+    "wavelet_monodepth_tpu_torch.models.factory",
+    "wavelet_monodepth_tpu_torch.train.losses_kitti",
+    "wavelet_monodepth_tpu_torch.train.optim",
+    "wavelet_monodepth_tpu_torch.train.kitti",
+    "wavelet_monodepth_tpu_torch.data.splits",
+    "wavelet_monodepth_tpu_torch.data.kitti",
+    "wavelet_monodepth_tpu_torch.data.loader",
+    "wavelet_monodepth_tpu_torch.utils.config",
+    "wavelet_monodepth_tpu_torch.utils.checkpoint",
+    "wavelet_monodepth_tpu_torch.utils.logging",
+    "wavelet_monodepth_tpu_torch.utils.device",
+    "wavelet_monodepth_tpu_torch.tools.train_kitti",
 ]
 
 
 def test_port_imports_no_jax():
     """Importing every port module (and running infer's lazy imports'
-    targets) loads neither jax/flax nor the JAX package."""
+    targets) loads neither jax/flax nor the JAX package, and no cv2."""
     code = (
         "import sys, importlib\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
         "import PIL.Image\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'wavelet_monodepth_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'wavelet_monodepth_tpu', 'cv2'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

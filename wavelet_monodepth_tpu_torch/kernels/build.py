@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface. `load(name)` compiles
 it with nvcc for Hopper (`sm_90a`) into a shared library under the
-package's git-ignored `_build/` directory, named by a hash of the source
+package's git-ignored `_build/` directory (`load_all(names)` builds
+several, one nvcc each, all started together), named by a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused. The JAX package has no counterpart: Pallas kernels compile inside
 `jax.jit`.
@@ -50,26 +51,51 @@ def nvcc_path() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`; cached per process."""
-    if name in _libs:
-        return _libs[name]
+    return load_all([name])[0]
+
+
+def load_all(names) -> list:
+    """Build (if needed) and load several sources: one nvcc per source,
+    all started together, so the build takes as long as the slowest."""
+    jobs = {}
+    try:
+        for name in names:
+            if name not in _libs and name not in jobs:
+                jobs[name] = _start(name)
+        for name, job in jobs.items():
+            _finish(name, *job)
+    finally:                        # a failed build stops the others
+        for job in jobs.values():
+            if job[3] is not None and job[3].poll() is None:
+                job[3].kill()
+                job[3].wait()
+    return [_libs[name] for name in names]
+
+
+def _start(name: str):
     src = SRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib_path = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    if lib_path.exists():
+        return src, lib_path, None, None, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                             str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return src, lib_path, tmp, proc, time.perf_counter()
+
+
+def _finish(name: str, src, lib_path, tmp, proc, t0) -> None:
     info = {"seconds": 0.0, "ptxas": "", "path": str(lib_path)}
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)], capture_output=True, text=True)
+    if proc is not None:
+        _, stderr = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src} "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
+                               f"(exit {proc.returncode}):\n{stderr}")
         os.replace(tmp, lib_path)   # atomic against concurrent builders
         info["seconds"] = time.perf_counter() - t0
-        info["ptxas"] = proc.stderr
-    lib = ctypes.CDLL(str(lib_path))
+        info["ptxas"] = stderr
     build_info[name] = info
-    _libs[name] = lib
-    return lib
+    _libs[name] = ctypes.CDLL(str(lib_path))

@@ -11,6 +11,11 @@ The JAX encoder folds the input normalisation into the stem's BN at
 inference (`resnet.py:107-140`), a TPU micro-optimisation equal to the
 plain form up to reassociation; the port keeps the plain form, so
 features agree with JAX to float32 rounding, not bit for bit.
+
+BatchNorm is `BatchNorm2d` below: torch's in eval mode; in train mode it
+normalises with the batch statistics as torch does but updates the
+running variance with the *biased* batch variance, as flax does (torch
+uses the unbiased one). The port is held to the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +23,22 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train-mode running variance follows flax:
+    running = (1 - momentum) * running + momentum * biased batch var."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
 
 
 def num_ch_enc(num_layers: int) -> tuple[int, ...]:
@@ -36,14 +57,14 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn1 = BatchNorm2d(cout, eps=1e-5)
         self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn2 = BatchNorm2d(cout, eps=1e-5)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride, bias=False),
-                nn.BatchNorm2d(cout, eps=1e-5))
+                BatchNorm2d(cout, eps=1e-5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -58,7 +79,7 @@ class _ResNet(nn.Module):
     def __init__(self, blocks=(2, 2, 2, 2)):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm2d(64, eps=1e-5)
         chans = (64, 64, 128, 256, 512)
         for stage, nb in enumerate(blocks):
             layer = [BasicBlock(chans[stage] if b == 0 else chans[stage + 1],

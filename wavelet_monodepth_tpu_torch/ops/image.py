@@ -1,9 +1,13 @@
 """Image-space primitives on NHWC tensors: padding, nearest upsampling,
-mask dilation and bilinear resize.
+mask dilation, bilinear resize and warp, smoothness loss.
 
-Counterpart of `wavelet_monodepth_tpu/ops/image.py:18-87`. Each function
-takes and returns NHWC and runs the NCHW torch op on a permuted view
-(channels_last memory, no copy).
+Counterpart of `wavelet_monodepth_tpu/ops/image.py`. Each function takes
+and returns NHWC and runs the NCHW torch op on a permuted view
+(channels_last memory, no copy). `grid_sample_border` is
+`F.grid_sample(padding_mode="border", align_corners=False)`: the JAX
+package's gather warp and its TPU-only batch-chunked take
+(`ops/image.py:98-204`, an XLA operand-size workaround) have no CUDA
+counterpart to port.
 """
 
 from __future__ import annotations
@@ -60,3 +64,52 @@ def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
 def dilate_mask(mask: torch.Tensor, k: int) -> torch.Tensor:
     """Dilate a {0,1} float mask with a k x k window."""
     return max_pool_same(mask, k)
+
+
+def avg_pool3_valid(x: torch.Tensor) -> torch.Tensor:
+    """3x3 average pool, stride 1, VALID (torch AvgPool2d(3, 1)), the SSIM
+    building block."""
+    return _nhwc(F.avg_pool2d(_nchw(x), 3, stride=1))
+
+
+def grid_sample_border(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Bilinear warp with border clamping: img (N, H, W, C), grid
+    (N, Ho, Wo, 2) normalised (x, y) in [-1, 1] under align_corners=False.
+    Both are cast to the dtype torch promotes them to."""
+    dt = torch.promote_types(img.dtype, grid.dtype)
+    out = F.grid_sample(_nchw(img.to(dt)), grid.to(dt), mode="bilinear",
+                        padding_mode="border", align_corners=False)
+    return _nhwc(out)
+
+
+def get_smooth_loss(disp: torch.Tensor, img: torch.Tensor,
+                    gamma: float = 2.0) -> torch.Tensor:
+    """Edge-aware disparity smoothness (`KITTI/layers.py:239-252`)."""
+    grad_disp_x = torch.abs(disp[:, :, :-1, :] - disp[:, :, 1:, :])
+    grad_disp_y = torch.abs(disp[:, :-1, :, :] - disp[:, 1:, :, :])
+    grad_img_x = torch.mean(torch.abs(img[:, :, :-1, :] - img[:, :, 1:, :]),
+                            dim=3, keepdim=True)
+    grad_img_y = torch.mean(torch.abs(img[:, :-1, :, :] - img[:, 1:, :, :]),
+                            dim=3, keepdim=True)
+    grad_disp_x = grad_disp_x * torch.exp(-gamma * grad_img_x)
+    grad_disp_y = grad_disp_y * torch.exp(-gamma * grad_img_y)
+    return grad_disp_x.mean() + grad_disp_y.mean()
+
+
+def get_grad_map(img: torch.Tensor, reduce: bool = False) -> torch.Tensor:
+    """Per-channel |dx| / |dy| maps, reflect-padded back to the input size;
+    channels [grad_x..., grad_y...] (2C, or 2 with reduce=True)."""
+    gx = torch.abs(img[:, :, :-1, :] - img[:, :, 1:, :])
+    gy = torch.abs(img[:, :-1, :, :] - img[:, 1:, :, :])
+    gx = _nhwc(F.pad(_nchw(gx), (0, 1, 0, 0), mode="reflect"))
+    gy = _nhwc(F.pad(_nchw(gy), (0, 0, 0, 1), mode="reflect"))
+    if reduce:
+        gx = gx.mean(dim=3, keepdim=True)
+        gy = gy.mean(dim=3, keepdim=True)
+    return torch.cat([gx, gy], dim=3)
+
+
+def normalize_image(x: torch.Tensor) -> torch.Tensor:
+    """Rescale to [0, 1] for visualisation."""
+    ma, mi = x.max(), x.min()
+    return (x - mi) / (ma - mi + 1e-5)

@@ -10,7 +10,8 @@ magma-coloured <name>_disp.jpeg with a 95th-percentile vmax.
 
 Usage:
   python -m wavelet_monodepth_tpu_torch.tools.infer --image_path img.png \
-      --torch_model_path weights_folder [--use_sparse --threshold 0.1]
+      --torch_model_path weights_folder [--use_sparse --threshold 0.1] \
+      [--device cpu]
 """
 
 from __future__ import annotations
@@ -53,6 +54,8 @@ def parse_args(argv=None):
     p.add_argument("--threshold", type=float, default=0.1)
     p.add_argument("--bfloat16", action="store_true",
                    help="run the model in bfloat16 (not ported yet)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the default; raises without a card) or cpu")
     return p.parse_args(argv)
 
 
@@ -122,13 +125,15 @@ def colormap_disp(disp: np.ndarray) -> np.ndarray:
 
 
 def main(argv=None, device=None):
+    """Runs on `device`, else on --device (cuda by default, which raises
+    without a card)."""
     from PIL import Image
     from ..ops.geometry import disp_to_depth
     from ..ops.image import resize_bilinear
+    from ..utils.device import resolve_device
 
     args = parse_args(argv)
-    if device is None:
-        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(device if device is not None else args.device)
     forward, (feed_h, feed_w) = load_model(args, device)
 
     if os.path.isfile(args.image_path):

@@ -9,7 +9,9 @@ carry the reference's state-dict names, so:
 
   * `state_dicts_from_jax(enc_vars, dec_vars)` turns JAX variables
     (nested dicts of numpy arrays) into the reference-named encoder and
-    decoder state dicts, key for key what the JAX exporter writes;
+    decoder state dicts, key for key what the JAX exporter writes, and
+    `param_trees_from_jax` does the same for parameter-shaped trees (a
+    gradient, updated parameters) without BN statistics;
   * `load_reference_checkpoint(folder)` reads a reference
     `encoder.pth` / `depth.pth` pair, and `save_reference_checkpoint`
     writes one;
@@ -42,21 +44,33 @@ def _vec(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, np.float32))
 
 
-def _take_bn(sd: dict, tprefix: str, params: dict, stats: dict):
+def _take_bn(sd: dict, tprefix: str, params: dict, stats):
     sd[f"{tprefix}.weight"] = _vec(params["scale"])
     sd[f"{tprefix}.bias"] = _vec(params["bias"])
-    sd[f"{tprefix}.running_mean"] = _vec(stats["mean"])
-    sd[f"{tprefix}.running_var"] = _vec(stats["var"])
+    if stats is not None:
+        sd[f"{tprefix}.running_mean"] = _vec(stats["mean"])
+        sd[f"{tprefix}.running_var"] = _vec(stats["var"])
+
+
+def _sub(tree, *keys):
+    """tree[k0][k1]..., or None when tree is None."""
+    for k in keys:
+        if tree is None:
+            return None
+        tree = tree[k]
+    return tree
 
 
 def _encoder_state(variables: dict) -> dict:
     """ResNet18 encoder variables {params, batch_stats} -> torchvision
-    names under the reference's `encoder.` scope."""
+    names under the reference's `encoder.` scope (parameters only when
+    there are no batch_stats)."""
     params = variables["params"]
-    stats = variables["batch_stats"]
+    stats = variables.get("batch_stats")
     sd: dict = {}
     sd["encoder.conv1.weight"] = _conv_w(params["stem"]["conv"]["kernel"])
-    _take_bn(sd, "encoder.bn1", params["stem"]["bn"], stats["stem"]["bn"])
+    _take_bn(sd, "encoder.bn1", params["stem"]["bn"],
+             _sub(stats, "stem", "bn"))
     for li in range(4):
         for b in range(2):
             t = f"encoder.layer{li + 1}.{b}."
@@ -65,13 +79,13 @@ def _encoder_state(variables: dict) -> dict:
                 node = params[name][f"conv{k}"]
                 sd[f"{t}conv{k}.weight"] = _conv_w(node["conv"]["kernel"])
                 _take_bn(sd, f"{t}bn{k}", node["bn"],
-                         stats[name][f"conv{k}"]["bn"])
+                         _sub(stats, name, f"conv{k}", "bn"))
             if "downsample" in params[name]:
                 node = params[name]["downsample"]
                 sd[f"{t}downsample.0.weight"] = _conv_w(
                     node["conv"]["kernel"])
                 _take_bn(sd, f"{t}downsample.1", node["bn"],
-                         stats[name]["downsample"]["bn"])
+                         _sub(stats, name, "downsample", "bn"))
     return sd
 
 
@@ -104,6 +118,17 @@ def _decoder_state(variables: dict) -> dict:
 def state_dicts_from_jax(enc_vars: dict, dec_vars: dict):
     """(encoder state dict, decoder state dict) from JAX variable trees."""
     return _encoder_state(enc_vars), _decoder_state(dec_vars)
+
+
+def param_trees_from_jax(enc_tree: dict, dec_tree: dict) -> dict:
+    """{port parameter name: tensor} of trees shaped like the encoder's and
+    the decoder's params (a gradient or an updated parameter tree), with
+    the encoder's names prefixed `encoder.` and the decoder's `depth.`."""
+    out = {f"encoder.{k}": v
+           for k, v in _encoder_state({"params": enc_tree}).items()}
+    out.update({f"depth.{k}": v
+                for k, v in _decoder_state({"params": dec_tree}).items()})
+    return out
 
 
 def _fit(module: nn.Module, sd: dict):

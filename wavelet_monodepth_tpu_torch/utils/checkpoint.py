@@ -1,0 +1,94 @@
+"""Per-epoch checkpoints in the reference's layout.
+
+The reference writes `<log>/models/weights_<epoch>/{encoder,depth,
+adam}.pth` and `<log>/models/opt.json` (`KITTI/trainer.py:722-785`);
+`encoder.pth` carries the feed height / width / use_stereo beside the
+state dict, which the inference tools read back. The JAX package stores
+one flax state file per folder instead (`utils/checkpoint.py`); the port
+writes the reference's files, so its `tools/infer.py` and the reference
+load them, and `latest_checkpoint` serves `--auto_resume`.
+
+Each file is written to a temporary name and renamed, so a folder cut
+off mid-save lacks a file and `latest_checkpoint` skips it.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from .config import save_opts
+
+_FILES = ("encoder.pth", "depth.pth", "adam.pth")
+
+
+def _save(obj, path: str) -> None:
+    torch.save(obj, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _cpu(sd: dict) -> dict:
+    return {k: v.detach().cpu() if torch.is_tensor(v) else v
+            for k, v in sd.items()}
+
+
+def save_checkpoint(log_path: str, epoch: int, state, opts) -> str:
+    """Write models/weights_<epoch>/ (encoder.pth with the feed size,
+    depth.pth, adam.pth last) and models/opt.json. Returns the folder."""
+    models = os.path.join(log_path, "models")
+    folder = os.path.join(models, f"weights_{epoch}")
+    os.makedirs(folder, exist_ok=True)
+    enc = _cpu(state.encoder.state_dict())
+    enc.update(height=int(opts.height), width=int(opts.width),
+               use_stereo=bool(opts.use_stereo))
+    _save(enc, os.path.join(folder, "encoder.pth"))
+    _save(_cpu(state.decoder.state_dict()), os.path.join(folder, "depth.pth"))
+    _save(state.optimizer.state_dict(), os.path.join(folder, "adam.pth"))
+    save_opts(opts, os.path.join(models, "opt.json"))
+    return folder
+
+
+def load_checkpoint(folder: str, state,
+                    models_to_load=("encoder", "depth")) -> dict:
+    """Restore the chosen models (and Adam, when its file is there and the
+    parameter groups match) into `state` in place, `trainer.py:753-785`.
+    Returns the feed-size ints of encoder.pth."""
+    meta = {}
+    device = next(state.encoder.parameters()).device
+    for name, module in (("encoder", state.encoder),
+                         ("depth", state.decoder)):
+        if name not in models_to_load:
+            continue
+        sd = torch.load(os.path.join(folder, f"{name}.pth"),
+                        map_location=device, weights_only=True)
+        for k in ("height", "width", "use_stereo"):
+            if k in sd:
+                meta[k] = int(sd.pop(k))
+        module.load_state_dict(sd, strict=True)
+    adam = os.path.join(folder, "adam.pth")
+    if os.path.exists(adam):
+        sd = torch.load(adam, map_location=device, weights_only=True)
+        sizes = [len(g["params"]) for g in sd["param_groups"]]
+        if sizes == [len(g["params"]) for g in state.optimizer.param_groups]:
+            state.optimizer.load_state_dict(sd)
+        else:
+            print("Can't load Adam: its parameter groups differ; "
+                  "Adam is randomly initialized")
+    return meta
+
+
+def latest_checkpoint(log_path: str) -> Optional[str]:
+    """Newest weights_<epoch> folder that holds all its files; a folder
+    whose save was cut off is skipped for the one before."""
+    models_dir = os.path.join(log_path, "models")
+    if not os.path.isdir(models_dir):
+        return None
+    folders = [d for d in os.listdir(models_dir) if d.startswith("weights_")]
+    folders.sort(key=lambda d: int(d.split("_")[1]), reverse=True)
+    for d in folders:
+        folder = os.path.join(models_dir, d)
+        if all(os.path.exists(os.path.join(folder, f)) for f in _FILES):
+            return folder
+    return None
