@@ -3,31 +3,50 @@
 
 Drives wavelet_monodepth_tpu_torch's two paths at full width (KITTI
 ResNet18, 640x192, random weights from seeded torch.Generators): serving
-(dense and sparse inference, the tile-sparse 3x3 conv kernel) and
-training (stereo + depth hints at batch 12 with the banded warp kernel),
-in phases; any failure raises and exits non-zero:
+(dense and sparse inference on every sparse backend: the tile-sparse 3x3
+conv kernel, the block IO kernels of the compact backend) and training
+(stereo + depth hints at batch 12 with the banded warp kernel), plus the
+fused wave stage kernel on the serving slice's own stage inputs, in
+phases; any failure raises and exits non-zero:
 
   1. device: needs CUDA (raises otherwise), turns TF32 off, prints the
      card's name and power limit;
-  2. build: both csrc/*.cu sources, one nvcc each, started together;
+  2. build: the four csrc/*.cu sources, one nvcc each, started together;
      prints each one's ptxas registers and spills;
   3. conv kernel vs plain: both wrappers (stripe flags, K1; 2-D tile
      flags, K4) against the plain PyTorch version at every decoder conv
      shape of the path at B=1 and B=16, plus all pad modes / epilogues and
      all-zero, all-one and ragged masks; max |err| <= 1e-4;
   4. serving: a reference-layout checkpoint folder and 4 scene PNGs are
-     written to a temp dir, and a server built by tools/infer.load_model
-     answers each image with --use_sparse --threshold 0.1 on both kernel
-     backends (12 launches per request each, counted), checked against
-     the masked-dense cuDNN backend; then tools/infer.main runs once;
+     written to a temp dir, and servers built by tools/infer.load_model
+     answer each image with --use_sparse --threshold 0.1 on the kernel
+     backends (12 conv launches per request each) and the compacted ones
+     ("compact": 18 band_gather + 6 block_scatter launches per request;
+     "sites", "capacity"; compact_cap 0.5), all counted; answers are
+     checked against the masked-dense cuDNN backend where the backend is
+     exact and nothing overflowed; then tools/infer.main runs once;
   5. serving contracts: thresh=-1 sparse == dense (bitwise on the xla
      backend, 1e-4 on the kernel backends) and, at bench.py's operating
      point (B=16, 10% edge masks via mask_override), kernel backends ==
-     xla within 1e-4 with equal op counts;
+     xla within 1e-4 with equal op counts; the compacted backends at
+     compact_cap 1.0 overflow nowhere, keep xla's op counts and equal xla
+     within 1e-4 (sites, capacity: whole tensors; compact: away from its
+     image-border ring, COMPACT_RING); at 0.5 their overflow is printed;
+  5b. block IO vs plain: the 18 gathers and 6 scatters of a compact
+     forward at B=16 and B=1, every tile of a stack (window_h == th, the
+     last row block) and odd C=1 / C=3 row widths; bitwise equal;
+  5c. fused wave stage (K2) vs plain (<= 1e-4) and vs the masked-dense
+     oracle's interior (2 px for yh and x1, 4 px for yl_new; <= 1e-4) on
+     the decoder's stage inputs at scales 3, 2, 1, B=16 and B=1, under
+     the 10% maskgen, all-zero and all-one masks;
   6. serving times (CUDA events, warm-up, median of 3 interleaved windows
      with min and max): per-conv kernel vs plain vs cuDNN's F.conv2d with
      each conv's bound, whole forward dense vs sparse xla / pallas /
-     pallas2d at B=16 and B=1;
+     pallas2d / compact / sites / capacity (compact_cap 0.5, and 1.0 for
+     compact and capacity) at B=16 and B=1; K5 and K6
+     summed over one B=16 compact forward's launches; K2 per scale at
+     B=16; a torch.profiler trace of the compacted backends' B=16
+     forwards (device idle share, costliest kernels and ATen ops);
   7. warp kernel vs plain: the banded warp (K3) forward and its gradients
      for src, x and yr, with and without the source-row pass, on the
      path's (12, 192, 640, 3) stereo grids (a random net's depth and
@@ -94,10 +113,20 @@ KERNELS = {
     "conv3x3_tile_sparse": "wavelet_monodepth_tpu/ops/pallas_conv.py:124",
     "conv3x3_tile_sparse_2d": "wavelet_monodepth_tpu/ops/pallas_conv.py:274",
 }
-SOURCES = {"tile_sparse_conv":
-           "wavelet_monodepth_tpu_torch/csrc/tile_sparse_conv.cu",
-           "banded_warp": "wavelet_monodepth_tpu_torch/csrc/banded_warp.cu"}
+SOURCES = {name: f"wavelet_monodepth_tpu_torch/csrc/{name}.cu"
+           for name in ("tile_sparse_conv", "banded_warp", "blockio",
+                        "fused_wave_stage")}
 WARP_REPLACES = "wavelet_monodepth_tpu/ops/warp.py:205"
+BLOCKIO_REPLACES = {"band_gather": "wavelet_monodepth_tpu/ops/blockio.py:82",
+                    "block_scatter":
+                        "wavelet_monodepth_tpu/ops/blockio.py:129"}
+FUSED_REPLACES = "wavelet_monodepth_tpu/ops/pallas_fused.py:182"
+COMPACTED = ("compact", "sites", "capacity")
+# high-res px at the image border, per disp scale, where "compact" may
+# differ from xla: each compacted stage's <= 2 px ring (tiles pad their
+# inputs, xla its features), widened by the next stages' convs and
+# upsampling and doubled by each IDWT; scale 3 comes from the dense stage
+COMPACT_RING = {3: 0, 2: 4, 1: 16, 0: 36}
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s
 # and float32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12
@@ -146,14 +175,16 @@ def phase_device():
 # --- phase 2: build --------------------------------------------------------
 
 def phase_build():
-    """Both sources, one nvcc each, started together."""
+    """Every source, one nvcc each, started together."""
     from wavelet_monodepth_tpu_torch.kernels import build
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
     from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
     from wavelet_monodepth_tpu_torch.ops import warp
     t0 = time.perf_counter()
     build.load_all(list(SOURCES))
-    tsc._kernel_lib()
-    warp._kernel_lib()
+    for module in (tsc, warp, bio, fs):
+        module._kernel_lib()
     for name in SOURCES:
         info = build.build_info[name]
         usage = [ln.split("info    :")[-1].strip()
@@ -301,6 +332,7 @@ def serve(dev, enc, dec, tmp):
     import torch
     from PIL import Image
     from wavelet_monodepth_tpu_torch.ops.sparse import compute_density
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
     from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
     from wavelet_monodepth_tpu_torch.tools import infer
     from wavelet_monodepth_tpu_torch.tools import torch_import as ti
@@ -321,9 +353,17 @@ def serve(dev, enc, dec, tmp):
             "--use_sparse", "--threshold", "0.1"]
     args = infer.parse_args(argv)
     servers = {}
-    for backend in ("pallas", "pallas2d", "xla"):
+    for backend in ("pallas", "pallas2d", "xla") + COMPACTED:
         servers[backend], feed = infer.load_model(args, dev, backend)
         require(feed == (H, W), feed)
+    # each backend's kernel launches per request
+    per_request = {"pallas": {"conv3x3_tile_sparse": 12},
+                   "pallas2d": {"conv3x3_tile_sparse_2d": 12},
+                   "compact": {"band_gather": 18, "block_scatter": 6},
+                   "sites": {}, "capacity": {}}
+
+    def counts():
+        return {**tsc.launches, **bio.launches}
 
     def rerun(x):
         def f(masks):
@@ -337,31 +377,43 @@ def serve(dev, enc, dec, tmp):
                 for p in paths]
     torch.cuda.synchronize()
     tsc.reset_launches()
+    bio.reset_launches()
     answers = []
     for x in requests:
         per = {}
-        for backend, key in (("pallas", "conv3x3_tile_sparse"),
-                             ("pallas2d", "conv3x3_tile_sparse_2d")):
-            before = tsc.launches[key]
+        for backend in per_request:
+            before = counts()
             per[backend] = servers[backend](x, args.threshold)
-            per[backend + "_launches"] = tsc.launches[key] - before
+            per[backend + "_launches"] = {
+                k: v - before[k] for k, v in counts().items()
+                if v != before[k]}
         answers.append(per)
     torch.cuda.synchronize()
-    launches = dict(tsc.launches)
+    launches = counts()
 
     for k, (x, per) in enumerate(zip(requests, answers)):
         ref = servers["xla"](x, args.threshold)
-        for backend in ("pallas", "pallas2d"):
-            require(per[backend + "_launches"] == 12,
-                    ("launches per request", backend, per))
-            err, flips = same_answer(per[backend], ref, args.threshold,
-                                     rerun(x))
-            emit({"phase": "slice", "request": k, "backend": backend,
-                  "launches": per[backend + "_launches"],
-                  "disp_max_abs_err_vs_xla": err, "mask_flips": flips,
-                  "density": float(compute_density(per[backend]))})
+        for backend, want in per_request.items():
+            out = per[backend]
+            require(per[backend + "_launches"] == want,
+                    ("launches per request", backend,
+                     per[backend + "_launches"]))
+            require(all(bool(torch.isfinite(out[("disp", s)]).all())
+                        for s in range(4)), (backend, "finite disparity"))
+            row = {"phase": "slice", "request": k, "backend": backend,
+                   "launches": per[backend + "_launches"],
+                   "density": float(compute_density(out))}
+            overflow = {s: int(out[("overflow", s)]) for s in range(3)
+                        if ("overflow", s) in out}
+            # an exact backend that dropped nothing must give xla's answer
+            if backend != "compact" and not any(overflow.values()):
+                err, flips = same_answer(out, ref, args.threshold,
+                                         rerun(x))
+                row.update(disp_max_abs_err_vs_xla=err, mask_flips=flips)
+            emit({**row, "overflow_at_cap_0.5": overflow})
     require(launches == {"conv3x3_tile_sparse": 48,
-                         "conv3x3_tile_sparse_2d": 48}, launches)
+                         "conv3x3_tile_sparse_2d": 48,
+                         "band_gather": 72, "block_scatter": 24}, launches)
 
     infer.main(argv, device=dev)
     for p in paths:
@@ -421,6 +473,244 @@ def phase_contracts(dev, enc, dec):
                   "density": float(compute_density(out)),
                   "maskgen_density": dens,
                   "mean_total_ops": float(out[("total_ops", -1)].mean())})
+        # the compacted backends: exact at compact_cap 1.0 (compact away
+        # from its border ring), and what 0.5 drops
+        for backend in COMPACTED:
+            ring = COMPACT_RING if backend == "compact" else dict.fromkeys(
+                range(4), 0)
+            row = {"phase": "contract_operating_point", "batch": 16,
+                   "backend": backend, "maskgen_density": dens}
+            for cap in (1.0, 0.5):
+                out = dec(feats, thresh_ratio=ratio, mask_override=mo,
+                          use_pallas=backend, compact_cap=cap)
+                err = max(float(interior(out[("disp", s)]
+                                         - ref[("disp", s)], ring[s])
+                                .abs().max()) for s in range(4))
+                overflow = {s: int(out[("overflow", s)]) for s in range(3)}
+                ops_equal = all(torch.equal(out[k], ref[k]) for k in ref
+                                if k[0] == "total_ops")
+                row[f"cap_{cap}"] = {"disp_max_abs_err_vs_xla": err,
+                                     "overflow": overflow,
+                                     "total_ops_equal": ops_equal}
+                if cap == 1.0:
+                    require(err <= TOL and ops_equal
+                            and not any(overflow.values()),
+                            (backend, row))
+            emit({**row, "border_ring_px": ring})
+
+
+def interior(t, r: int):
+    """t (N, H, W, C) without an r-pixel border."""
+    return t[:, r:t.shape[1] - r, r:t.shape[2] - r]
+
+
+# --- phase 5b: the block IO kernels (K5, K6) vs plain -----------------------
+
+def record_block_io(run):
+    """run() with band_gather / block_scatter recorded: [(name, args,
+    out)] in call order, args as the wrapper got them."""
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    calls = []
+    orig = {"band_gather": bio.band_gather,
+            "block_scatter": bio.block_scatter}
+
+    def recorder(name):
+        def f(*args):
+            out = orig[name](*args)
+            calls.append((name, args, out))
+            return out
+        return f
+
+    bio.band_gather = recorder("band_gather")
+    bio.block_scatter = recorder("block_scatter")
+    try:
+        run()
+    finally:
+        bio.band_gather = orig["band_gather"]
+        bio.block_scatter = orig["block_scatter"]
+    return calls
+
+
+def compact_forward(enc, dec, img, raw, ratio, cap=0.5):
+    def run():
+        import torch
+        with torch.inference_mode():
+            dec(enc(img), thresh_ratio=ratio, mask_override=raw,
+                use_pallas="compact", compact_cap=cap)
+    return run
+
+
+def phase_block_io_vs_plain(dev, enc, dec, errs):
+    """Every gather and scatter of a compact forward at B=16 and B=1 (the
+    kernel's own output, recorded on the path, against the plain version
+    on the same inputs), then every tile of stacks with odd row widths."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    plain = {"band_gather": bio.band_gather_plain,
+             "block_scatter": bio.block_scatter_plain}
+
+    def check(case, name, args, out):
+        ref = plain[name](*args)
+        torch.cuda.synchronize()
+        same = out.shape == ref.shape and torch.equal(out, ref)
+        err = float((out - ref).abs().max()) if out.shape == ref.shape \
+            else float("inf")
+        errs[name] = max(errs[name], err)
+        require(same and out.dtype == torch.float32, (name, case, err))
+        return err
+
+    for batch in (16, 1):
+        disp, raw, ratio, _, _ = edge_stage_masks(batch)
+        img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
+        raw = {i: m.to(dev) for i, m in raw.items()}
+        calls = record_block_io(compact_forward(enc, dec, img, raw, ratio))
+        names = [c[0] for c in calls]
+        require(names.count("band_gather") == 18
+                and names.count("block_scatter") == 6, names)
+        for k, (name, args, out) in enumerate(calls):
+            err = check({"batch": batch, "call": k}, name, args, out)
+            emit({"phase": "block_io_vs_plain", "kernel": name,
+                  "batch": batch, "call": k, "in": list(args[0].shape),
+                  "out": list(out.shape), "equal": True,
+                  "max_abs_err": err})
+        del calls
+
+    # every tile, the last row block included, at windows th, th + 2*halo
+    # and 2*th; C = 1 / 3 rows of odd widths take the scalar copies
+    g = torch.Generator().manual_seed(5)
+    for c, tw, halo in ((64, 16, 2), (1, 16, 1), (1, 17, 1), (3, 7, 0),
+                        (1, 9, 2)):
+        n, h, w, th = 2, 21, 70, 8
+        x = torch.randn(n, h, w, c, generator=g).to(dev)
+        stack = bio.wtile_stack(x, th, tw, halo)
+        nh, nw = -(-h // th), -(-w // tw)
+        idx = torch.stack(torch.meshgrid(
+            torch.arange(n), torch.arange(nh), torch.arange(nw),
+            indexing="ij"), -1).reshape(-1, 3)
+        idx = idx[torch.randperm(len(idx), generator=g)].to(torch.int32)
+        idx = idx.to(dev)
+        for window_h in sorted({th, th + 2 * halo, 2 * th}):
+            out = bio.band_gather(stack, idx, th, window_h)
+            check({"c": c, "tw": tw, "window_h": window_h}, "band_gather",
+                  (stack, idx, th, window_h), out)
+        vals = torch.randn(len(idx) - 1, th, tw, c, generator=g).to(dev)
+        out = bio.block_scatter(vals, idx[1:], n, nh, nw)
+        check({"c": c, "tw": tw}, "block_scatter", (vals, idx[1:], n, nh, nw),
+              out)
+        emit({"phase": "block_io_vs_plain", "case": "every tile",
+              "c": c, "tw": tw, "halo": halo, "equal": True})
+
+
+# --- phase 5c: the fused wave stage (K2) vs plain and the oracle ------------
+
+FUSED_SCALES = (3, 2, 1)
+
+
+def stage_inputs(enc, dec, img, raw, ratio):
+    """{scale i: (x, skip, yl, mask)} entering scales 3, 2 and 1 of the
+    masked-dense (xla) sparse forward under the raw masks: the decoder's
+    own stage inputs."""
+    import torch
+    seen = {}
+    hooks = [dec.blocks[f"upconv_{i}_0"].register_forward_pre_hook(
+        lambda mod, args, i=i: seen.__setitem__(i, args[0]))
+        for i in FUSED_SCALES]
+    try:
+        with torch.inference_mode():
+            feats = enc(img)
+            out = dec(feats, thresh_ratio=ratio, mask_override=raw)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return {i: (seen[i], feats[i - 1], out[("wavelets", i - 1, "LL")],
+                raw[i]) for i in FUSED_SCALES}
+
+
+def oracle_stage(dec, i, x, skip, yl, mask):
+    """Scale i by masked dense cuDNN convs (ops/sparse.py), as
+    tests/test_pallas_fused.py's oracle: (yh, yl_new, x1)."""
+    import torch.nn.functional as F
+    from wavelet_monodepth_tpu_torch.ops import sparse as sp
+    from wavelet_monodepth_tpu_torch.ops.wavelets import haar_idwt
+    m = sp.stage_masks(mask)
+    c0 = dec.blocks[f"upconv_{i}_0"].conv.conv
+    c1 = dec.blocks[f"upconv_{i}_1"].conv.conv
+    x0 = sp.masked_conv3x3(x, c0.weight, c0.bias, m["lowres"], m["upconv0"],
+                           "reflect", F.elu)
+    u = sp.masked_upsample_concat(x0, skip, m["upsample"])
+    x1 = sp.masked_conv3x3(u, c1.weight, c1.bias, None, m["upconv1"],
+                           "reflect", F.elu)
+    heads = []
+    for head in ("pos", "neg"):
+        wv = dec.blocks[f"waveconv_{i}_{head}"]
+        heads.append(sp.masked_waveconv(
+            x1, wv[0].conv.weight, wv[0].conv.bias, wv[2].conv.weight,
+            wv[2].conv.bias, m["upconv1"], m["wavelet"]))
+    yh = (2.0 ** (i - 1)) * (heads[0] - heads[1])
+    return yh, haar_idwt(yl, yh[..., 0:1], yh[..., 1:2], yh[..., 2:3]), x1
+
+
+def fused_plain(x, skip, yl, mask, params, i, ht=8, tw=64):
+    from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
+    inp = fs._stage_inputs(x, skip, yl, mask, ht, tw)
+    return fs.assemble(*fs.fused_wave_stage_plain(inp, params, i, ht, tw),
+                       2 * x.shape[1], 2 * x.shape[2])
+
+
+def phase_fused_stage(dev, enc, dec, errs):
+    """K2 driven on the decoder's stage inputs at scales 3, 2, 1, B=16 and
+    B=1 (the 10% maskgen masks; counted), then checked against its plain
+    version and the oracle's interior, also under all-zero and all-one
+    masks (not counted). Returns the counted launches and the B=16 stage
+    inputs."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    ring = {"yh": 2, "yl_new": 4, "x1": 2}
+    inputs, runs = {}, []
+    for batch in (16, 1):
+        disp, raw, ratio, _, _ = edge_stage_masks(batch)
+        img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
+        raw = {i: m.to(dev) for i, m in raw.items()}
+        inputs[batch] = stage_inputs(enc, dec, img, raw, ratio)
+    torch.cuda.synchronize()
+    fs.reset_launches()
+    with torch.inference_mode():
+        for batch in (16, 1):
+            for i, (x, skip, yl, mask) in inputs[batch].items():
+                runs.append((batch, i, "maskgen", mask, fs.fused_wave_stage(
+                    x, skip, yl, mask, *dec.stage_params(i), i_scale=i)))
+    torch.cuda.synchronize()
+    launches = fs.launches["fused_wave_stage"]
+    require(launches == 2 * len(FUSED_SCALES), launches)
+    with torch.inference_mode():
+        for batch in (16, 1):
+            for i, (x, skip, yl, mask) in inputs[batch].items():
+                for kind, m in (("zeros", torch.zeros_like(mask)),
+                                ("ones", torch.ones_like(mask))):
+                    runs.append((batch, i, kind, m, fs.fused_wave_stage(
+                        x, skip, yl, m, *dec.stage_params(i), i_scale=i)))
+        for batch, i, kind, mask, ours in runs:
+            x, skip, yl, _ = inputs[batch][i]
+            params = dec.stage_params(i)
+            plain = fused_plain(x, skip, yl, mask, params, i)
+            oracle = oracle_stage(dec, i, x, skip, yl, mask)
+            row = {"phase": "fused_vs_plain", "batch": batch, "scale": i,
+                   "mask": kind, "mask_density": float(mask.mean())}
+            for name, o, p, r in zip(ring, ours, plain, oracle):
+                require(o.shape == p.shape == r.shape
+                        and bool(torch.isfinite(o).all()), (row, name))
+                err = float((o - p).abs().max())
+                err_oracle = float(interior(o - r, ring[name]).abs().max())
+                errs["fused_wave_stage"] = max(errs["fused_wave_stage"], err)
+                row[name] = {"max_abs_err": err,
+                             "oracle_interior_max_abs_err": err_oracle}
+                require(err <= TOL and err_oracle <= TOL, (row, name))
+            if kind == "zeros":
+                require(not ours[0].any() and not ours[2].any(), row)
+            emit(row)
+    return launches, inputs[16]
 
 
 # --- phase 6: times ----------------------------------------------------------
@@ -521,27 +811,155 @@ def phase_times(dev, enc, dec, kernel_ms):
         img = torch.rand(batch, H, W, 3, generator=g).to(dev)
         mo = {i: m.to(dev) for i, m in raw.items()}
 
-        def fwd(backend):
+        def fwd(backend, cap=0.5):
             def f():
                 feats = enc(img)
                 if backend is None:
                     return dec(feats)
                 return dec(feats, thresh_ratio=ratio, mask_override=mo,
-                           use_pallas=backend)
+                           use_pallas=backend, compact_cap=cap)
             return f
 
         with torch.inference_mode():
             t = time_variants({"dense": fwd(None), "sparse_xla": fwd(False),
                                "sparse_pallas": fwd("pallas"),
-                               "sparse_pallas2d": fwd("pallas2d")},
+                               "sparse_pallas2d": fwd("pallas2d"),
+                               **{f"sparse_{b}": fwd(b) for b in COMPACTED},
+                               # at cap 1.0 nothing overflows: xla's answer
+                               **{f"sparse_{b}_cap1.0": fwd(b, 1.0)
+                                  for b in ("compact", "capacity")}},
                               iters=10 if batch == 16 else 30)
         emit({"phase": "time_forward", "batch": batch, "dtype": "float32",
               "res": [H, W], "mask": "maskgen 10% edge masks",
+              "compact_cap": "0.5 unless the name says 1.0",
               **{k: v for k, v in t.items()},
               "fps_median": {k: batch * 1e3 / v["ms_median"]
                              for k, v in t.items()}, **_card})
     for k in kernel_ms:
         kernel_ms[k]["bound_by"] = max(bound_by, key=bound_by.get)
+
+
+def library_gather(stack, idx, th: int, window_h: int):
+    """K5's yardstick: one advanced-indexing gather over an unfold view of
+    the stack (windows of window_h rows every th rows)."""
+    n, nw, nhp, _, twp, c = stack.shape
+    view = stack.reshape(n, nw, nhp * th, twp, c).unfold(
+        2, window_h, th).permute(0, 1, 2, 5, 3, 4)
+    b, ty, tx = (idx[:, j].long() for j in range(3))
+    return lambda: view[b, tx, ty]
+
+
+def library_scatter(vals, idx, n: int, nh: int, nw: int):
+    """K6's yardstick: a zeros canvas and one index_put_ into it, viewed
+    as (N, nh, th, nw, tw, C)."""
+    k, th, tw, c = vals.shape
+    b, ty, tx = (idx[:, j].long() for j in range(3))
+
+    def f():
+        canvas = vals.new_zeros((n, nh * th, nw * tw, c))
+        canvas.view(n, nh, th, nw, tw, c)[b, ty, :, tx] = vals
+        return canvas
+    return f
+
+
+def phase_block_io_times(dev, enc, dec):
+    """K5 and K6 per launch at the 18 + 6 calls of one B=16 compact
+    forward (10% maskgen masks, compact_cap 0.5): the kernel (with its
+    output's allocation, the canvas zeroing for K6), the plain version
+    and the library call, each call's bytes bound; sums per forward."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    disp, raw, ratio, _, _ = edge_stage_masks(16)
+    img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
+    raw = {i: m.to(dev) for i, m in raw.items()}
+    calls = record_block_io(compact_forward(enc, dec, img, raw, ratio))
+    sums = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bound_by": "bytes", "library_ms": 0.0}
+            for name in ("band_gather", "block_scatter")}
+    with torch.inference_mode():
+        for k, (name, args, out) in enumerate(calls):
+            if name == "band_gather":
+                stack, idx, th, window_h = args
+                variants = {
+                    "kernel": lambda: bio._launch_gather(stack, idx,
+                                                         window_h),
+                    "plain": lambda: bio.band_gather_plain(*args),
+                    "library": library_gather(*args)}
+                # the windows read once and written once
+                nbytes = 4.0 * (2 * out.numel() + idx.numel())
+            else:
+                vals, idx = args[:2]
+                variants = {
+                    "kernel": lambda: bio._launch_scatter(*args),
+                    "plain": lambda: bio.block_scatter_plain(*args),
+                    "library": library_scatter(*args)}
+                # the tiles read once, the whole canvas written once
+                nbytes = 4.0 * (vals.numel() + out.numel() + idx.numel())
+            require(torch.equal(variants["library"](), out), (name, k))
+            t = time_variants(variants, iters=20, queue_ahead=True)
+            bound = nbytes / HBM_BPS * 1e3
+            for key, v in (("ms", "kernel"), ("plain_ms", "plain"),
+                           ("library_ms", "library")):
+                sums[name][key] += t[v]["ms_median"]
+            sums[name]["bound_ms"] += bound
+            emit({"phase": "time_block_io", "kernel": name, "call": k,
+                  "batch": 16, "out": list(out.shape), "bytes": nbytes,
+                  "bound_ms": bound, **t, **_card})
+    emit({"phase": "time_block_io", "per_forward_sums": sums, **_card})
+    return sums
+
+
+def fused_bound_ms(x, skip, yl, mask, params, flags, ht=8, tw=64):
+    """(bound ms, bound by) of one fused_wave_stage call: the f32 FLOPs of
+    its active tiles' own pixels (no halo) at the CUDA-core peak, or its
+    inputs, parameters and outputs (yh, yl_new, x1) once at HBM rate."""
+    cx, cs, cd = x.shape[-1], skip.shape[-1], params[0].shape[-1]
+    active = float(flags.sum())
+    hl, wl = ht // 2, tw // 2
+    macs = (hl * wl * 9 * cx * cd
+            + ht * tw * (9 * (cd + cs) * cd + 2 * cd * cd + 2 * 9 * cd * 3))
+    flops = 2.0 * macs * active
+    n, hh, wh = skip.shape[:3]
+    nbytes = 4.0 * (x.numel() + skip.numel() + yl.numel() + mask.numel()
+                    + sum(p.numel() for p in params)
+                    + n * hh * wh * (3 + 4 + cd))
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
+def phase_fused_times(dec, inputs):
+    """K2 per scale at B=16 on the decoder's stage inputs (10% maskgen
+    masks): the bare kernel on the padded inputs, its plain version on the
+    same, the whole wrapper; sums over the three scales."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
+    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
+    by = {"operations": 0.0, "bytes": 0.0}
+    with torch.inference_mode():
+        for i, (x, skip, yl, mask) in inputs.items():
+            params = dec.stage_params(i)
+            inp = fs._stage_inputs(x, skip, yl, mask, 8, 64)
+            t = time_variants({
+                "kernel": lambda: fs._launch(inp, params, i, 8, 64),
+                "plain": lambda: fs.fused_wave_stage_plain(inp, params, i,
+                                                           8, 64),
+                "wrapper": lambda: fs.fused_wave_stage(
+                    x, skip, yl, mask, *params, i_scale=i)}, iters=5)
+            bound, bound_by = fused_bound_ms(x, skip, yl, mask, params,
+                                             inp["flags"])
+            by[bound_by] += bound
+            sums["ms"] += t["kernel"]["ms_median"]
+            sums["plain_ms"] += t["plain"]["ms_median"]
+            sums["bound_ms"] += bound
+            emit({"phase": "time_fused", "scale": i, "batch": x.shape[0],
+                  "x": list(x.shape), "skip": list(skip.shape),
+                  "tiles": list(inp["flags"].shape),
+                  "active_tiles": int(inp["flags"].sum()),
+                  "bound_ms": bound, "bound_by": bound_by, **t, **_card})
+    sums["bound_by"] = max(by, key=by.get)
+    return sums
 
 
 # --- phase 7: the banded warp (K3), kernel vs plain -------------------------
@@ -996,26 +1414,31 @@ def time_backward(out, inputs, g):
     return lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
 
 
-def profile_step(setup, state, noise, batch, kern: str) -> None:
-    """Device busy time, idle share and kernels of 3 train steps in one
-    torch.profiler trace (the trace's own overhead lengthens the wall)."""
+def trace_calls(fn, calls: int):
+    """fn() `calls` times in one torch.profiler trace (its own overhead
+    lengthens the wall): (device spans sorted, {kernel: [launches, us]},
+    {innermost ATen op: [us, kernels]}, busy us, wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            setup.train_step(state, batch, noise)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, by_kernel = [], {}
+    spans, by_kernel, by_op = [], {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             k = by_kernel.setdefault(e.name, [0, 0.0])
             k[0] += 1
             k[1] += e.time_range.end - e.time_range.start
+        elif e.kernels:
+            row = by_op.setdefault(e.name, [0.0, 0])
+            row[0] += sum(k.duration for k in e.kernels)
+            row[1] += len(e.kernels)
     spans.sort()
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -1027,6 +1450,47 @@ def profile_step(setup, state, noise, batch, kern: str) -> None:
             cur_e = max(cur_e, e)
     if cur_e is not None:
         busy += cur_e - cur_s
+    return spans, by_kernel, by_op, busy, wall_ms
+
+
+def profile_forwards(enc, dec, dev) -> None:
+    """Device busy time, idle share, costliest kernels and ATen ops per
+    B=16 forward of each compacted backend (10% maskgen masks,
+    compact_cap 0.5), 3 forwards in one trace each."""
+    import torch
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    disp, raw, ratio, _, _ = edge_stage_masks(16)
+    img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
+    raw = {i: m.to(dev) for i, m in raw.items()}
+    for backend in COMPACTED:
+        def fwd():
+            with torch.inference_mode():
+                dec(enc(img), thresh_ratio=ratio, mask_override=raw,
+                    use_pallas=backend)
+        fwd()
+        spans, by_kernel, by_op, busy, wall_ms = trace_calls(fwd, 3)
+        top_k = sorted(((v[1], n[:100], v[0]) for n, v in by_kernel.items()),
+                       reverse=True)[:10]
+        top_op = sorted(((v[0], n, v[1]) for n, v in by_op.items()),
+                        reverse=True)[:10]
+        # no device spans means the tracer saw nothing: "not measured"
+        emit({"phase": "profile_forward", "backend": backend, "batch": 16,
+              "forwards": 3, "kernels_per_forward": len(spans) / 3,
+              "device_busy_ms_per_forward": busy / 3e3 if spans else None,
+              "wall_ms_per_forward": wall_ms / 3,
+              "idle_share_of_wall":
+                  1.0 - busy / 1e3 / wall_ms if spans else None,
+              "top_kernels_ms_per_forward": [[k, v / 3e3, c / 3]
+                                             for v, k, c in top_k],
+              "top_ops_ms_per_forward": [[k, v / 3e3, c / 3]
+                                         for v, k, c in top_op], **_card})
+
+
+def profile_step(setup, state, noise, batch, kern: str) -> None:
+    """Device busy time, idle share and kernels of 3 train steps in one
+    torch.profiler trace (the trace's own overhead lengthens the wall)."""
+    spans, by_kernel, _, busy, wall_ms = trace_calls(
+        lambda: setup.train_step(state, batch, noise), 3)
     top = sorted(((v[1], name[:120], v[0]) for name, v in by_kernel.items()),
                  reverse=True)[:12]
     warp_kernels = {name[:120]: {"launches": v[0],
@@ -1222,13 +1686,20 @@ def main():
     import torch
     phase_build()
     errs = {k: 0.0 for k in KERNELS}
-    errs.update(banded_warp_fwd=0.0, banded_warp_bwd=0.0)
+    errs.update(banded_warp_fwd=0.0, banded_warp_bwd=0.0, band_gather=0.0,
+                block_scatter=0.0, fused_wave_stage=0.0)
     phase_kernel_vs_plain(dev, errs)
     launches, enc, dec = phase_slice(dev)
     phase_contracts(dev, enc, dec)
+    phase_block_io_vs_plain(dev, enc, dec, errs)
+    fused_launches, fused_inputs = phase_fused_stage(dev, enc, dec, errs)
     kernel_ms = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "library_ms": 0.0} for k in KERNELS}
     phase_times(dev, enc, dec, kernel_ms)
+    block_io_ms = phase_block_io_times(dev, enc, dec)
+    fused_ms = phase_fused_times(dec, fused_inputs)
+    del fused_inputs
+    profile_forwards(enc, dec, dev)
     # ms / plain_ms / bound_ms / library_ms: the 12 launches of one B=16
     # sparse forward at the 10% operating point, summed medians
     kernels = [{
@@ -1236,6 +1707,23 @@ def main():
         "source": SOURCES["tile_sparse_conv"],
         "replaces": KERNELS[k], "launches": launches[k],
         "max_abs_err": errs[k], **kernel_ms[k]} for k in KERNELS]
+    # K5 / K6: the 18 / 6 launches of one B=16 compact forward, summed;
+    # launches: the 4 served requests'
+    kernels += [{
+        "name": k, "route": "cuda", "source": SOURCES["blockio"],
+        "replaces": BLOCKIO_REPLACES[k], "launches": launches[k],
+        "max_abs_err": errs[k], **block_io_ms[k]} for k in BLOCKIO_REPLACES]
+    # K2: its 3 scales at B=16, summed; JAX wires K2 into no decoder path,
+    # so its launches are this script's own calls on the decoder's stage
+    # inputs (scales 3, 2, 1 at B=16 and B=1)
+    kernels.append({
+        "name": "fused_wave_stage", "route": "cuda",
+        "source": SOURCES["fused_wave_stage"], "replaces": FUSED_REPLACES,
+        "launches": fused_launches, "max_abs_err": errs["fused_wave_stage"],
+        **fused_ms,
+        "note": "no JAX decoder path runs K2: launches are chip_smoke's "
+                "calls on the decoder's stage inputs; library_ms is null: "
+                "no single PyTorch call computes the stage"})
 
     phase_warp_vs_plain(dev, (enc, dec), errs)
     del enc, dec

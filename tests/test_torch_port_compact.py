@@ -1,0 +1,220 @@
+"""Port parity, the tile-compact engine: wavelet_monodepth_tpu_torch's
+ops/blockio.py (K5 band_gather, K6 block_scatter, wtile_stack) and
+ops/compact.py against the JAX package's, with the Pallas kernels in
+interpret mode as tests/test_compact.py runs them.
+
+Tolerances: wtile_stack, the gathers and the scatters are copies, so
+they are compared bitwise; compact_wave_stage within 1e-5 over the whole
+tensors, the image-border ring included (XLA-CPU and ATen sum the convs
+in different orders); overflow counts exactly. The CUDA kernels are
+checked against the plain versions by the `cuda`-marked tests at the end
+(and by chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wavelet_monodepth_tpu.ops import blockio as jbio
+from wavelet_monodepth_tpu.ops import compact as jcp
+from wavelet_monodepth_tpu_torch.ops import blockio as bio
+from wavelet_monodepth_tpu_torch.ops import compact as cp
+
+torch.set_num_threads(1)
+ATOL = 1e-5
+N, HL, WL, CX, CS, CD = 2, 16, 40, 64, 64, 32
+
+
+def _params(rng, cx, cs, cd):
+    shapes = [(3, 3, cx, cd), (cd,), (3, 3, cd + cs, cd), (cd,),
+              (1, 1, cd, cd), (cd,), (3, 3, cd, 3), (3,),
+              (1, 1, cd, cd), (cd,), (3, 3, cd, 3), (3,)]
+    scale = [0.05, 0.1, 0.05, 0.1] + [0.1] * 8
+    return [(rng.randn(*s) * a).astype(np.float32)
+            for s, a in zip(shapes, scale)]
+
+
+@pytest.fixture(scope="module")
+def stage_case():
+    """tests/test_compact.py's stage shapes (n=2, 16x40 low res, Cx=Cs=64,
+    Cd=32), inputs from a numpy seed; an edge-like mask (15% dense) and an
+    all-ones one (every tile scores the same: the top-K order is ties
+    only)."""
+    rng = np.random.RandomState(0)
+    x = (rng.randn(N, HL, WL, CX) * 0.5).astype(np.float32)
+    skip = (rng.randn(N, 2 * HL, 2 * WL, CS) * 0.5).astype(np.float32)
+    mask = (rng.rand(N, HL, WL, 1) > 0.85).astype(np.float32)
+    ones = np.ones_like(mask)
+    return x, skip, {"edges": mask, "ones": ones}, _params(rng, CX, CS, CD)
+
+
+def _stage(module, arrays, to, i_scale=1, **kw):
+    x, skip, mask, prm = arrays
+    return module.compact_wave_stage(to(x), to(skip), to(mask),
+                                     *[to(p) for p in prm],
+                                     i_scale=i_scale, **kw)
+
+
+@pytest.mark.parametrize("halo,th,tw,pad_mode,c", [
+    (2, 4, 16, "reflect", 5), (1, 8, 32, "zero", 1),
+    (0, 8, 16, "reflect", 3), (1, 4, 17, "replicate", 1)])
+def test_wtile_stack_and_block_io_bitwise(halo, th, tw, pad_mode, c):
+    """wtile_stack, band_gather (window th..2*th rows, idx at every tile
+    including the last row block) and block_scatter equal JAX's exactly,
+    at aligned and unaligned (C=1, odd width) row widths."""
+    rng = np.random.RandomState(th + tw + c)
+    n, h, w = 2, 13, 37
+    x = rng.randn(n, h, w, c).astype(np.float32)
+    ours = bio.wtile_stack(torch.from_numpy(x), th, tw, halo, pad_mode)
+    ref = np.asarray(jbio.wtile_stack(jnp.asarray(x), th, tw, halo,
+                                      pad_mode))
+    np.testing.assert_array_equal(ours.numpy(), ref)
+
+    nh, nw = -(-h // th), -(-w // tw)
+    tiles = np.stack(np.meshgrid(np.arange(n), np.arange(nh), np.arange(nw),
+                                 indexing="ij"), -1).reshape(-1, 3)
+    idx = tiles[rng.permutation(len(tiles))].astype(np.int32)
+    for window_h in sorted({th, th + 2 * halo, 2 * th}):
+        g = bio.band_gather(ours, torch.from_numpy(idx), th, window_h)
+        gj = jbio.band_gather(jnp.asarray(ref), jnp.asarray(idx), th,
+                              window_h, interpret=True)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(gj))
+
+    vals = rng.randn(len(idx) - 3, th, tw, c).astype(np.float32)
+    sub = idx[3:]
+    s = bio.block_scatter(torch.from_numpy(vals), torch.from_numpy(sub), n,
+                          nh, nw)
+    sj = jbio.block_scatter(jnp.asarray(vals), jnp.asarray(sub), n, nh, nw,
+                            interpret=True)
+    np.testing.assert_array_equal(s.numpy(), np.asarray(sj))
+
+
+def test_block_scatter_rejects_duplicate_or_outside_idx():
+    vals = torch.zeros(2, 4, 8, 3)
+    for bad in ([[0, 1, 1], [0, 1, 1]], [[0, 0, 0], [0, 2, 0]],
+                [[0, 0, 0], [-1, 0, 0]]):
+        with pytest.raises(ValueError, match="distinct"):
+            bio.block_scatter(vals, torch.tensor(bad, dtype=torch.int32),
+                              1, 2, 2)
+    with pytest.raises(ValueError, match="2\\*th"):
+        bio.band_gather(torch.zeros(1, 1, 3, 4, 8, 1),
+                        torch.zeros(1, 3, dtype=torch.int32), 4, 9)
+
+
+@pytest.mark.parametrize("io", ["pallas", "xla"])
+@pytest.mark.parametrize("th,tw", [(8, 16), (8, 32)])
+def test_compact_stage_matches_jax(stage_case, io, th, tw):
+    x, skip, masks, prm = stage_case
+    arrays = (x, skip, masks["edges"], prm)
+    yh, x1 = _stage(cp, arrays, torch.from_numpy, th=th, tw=tw,
+                    cap_ratio=1.0, io=io)
+    yh_j, x1_j = _stage(jcp, arrays, jnp.asarray, th=th, tw=tw,
+                        cap_ratio=1.0, io=io)
+    assert yh.shape == (N, 2 * HL, 2 * WL, 3) and x1.shape[-1] == CD
+    np.testing.assert_allclose(yh.numpy(), np.asarray(yh_j), atol=ATOL)
+    np.testing.assert_allclose(x1.numpy(), np.asarray(x1_j), atol=ATOL)
+
+
+@pytest.mark.parametrize("mask", ["edges", "ones"])
+def test_compact_stage_starved_capacity_matches_jax(stage_case, mask):
+    """Past capacity the dropped tiles are JAX's: with every tile scoring
+    the same, only the tie order picks the K survivors."""
+    x, skip, masks, prm = stage_case
+    arrays = (x, skip, masks[mask], prm)
+    kw = {"th": 8, "tw": 16, "cap_ratio": 0.3}
+    over = cp.stage_capacity_overflow(torch.from_numpy(masks[mask]), 8, 16,
+                                      0.3)
+    over_j = jcp.stage_capacity_overflow(jnp.asarray(masks[mask]), 8, 16,
+                                         0.3)
+    assert int(over) == int(over_j) > 0
+    for io in ("pallas", "xla"):
+        yh, x1 = _stage(cp, arrays, torch.from_numpy, io=io, **kw)
+        yh_j, x1_j = _stage(jcp, arrays, jnp.asarray, io="pallas", **kw)
+        np.testing.assert_allclose(yh.numpy(), np.asarray(yh_j), atol=ATOL)
+        np.testing.assert_allclose(x1.numpy(), np.asarray(x1_j), atol=ATOL)
+
+
+def test_stage_primitives_match_jax():
+    rng = np.random.RandomState(1)
+    m = (rng.rand(2, 16, 36, 1) > 0.8).astype(np.float32)
+    mt, mj = torch.from_numpy(m), jnp.asarray(m)
+    for th, tw in ((8, 8), (8, 16), (4, 32)):
+        np.testing.assert_array_equal(cp.tile_scores(mt, th, tw).numpy(),
+                                      np.asarray(jcp.tile_scores(mj, th, tw)))
+        for k in (0, 3, 9, 100):
+            assert (int(cp.stage_overflow(mt, th, tw, k))
+                    == int(jcp.stage_overflow(mj, th, tw, k)))
+        for cap in (0.05, 0.5, 1.0):
+            assert (int(cp.stage_capacity_overflow(mt, th, tw, cap))
+                    == int(jcp.stage_capacity_overflow(mj, th, tw, cap)))
+    for hh, wh in ((8, 12), (24, 80), (32, 40), (96, 320)):
+        assert cp.default_tile_shape(hh, wh) == jcp.default_tile_shape(hh, wh)
+    x = rng.randn(2, 20, 24, 3).astype(np.float32)
+    tiles = cp._pretile(torch.from_numpy(x), 8, 8, 3, 3, 2)
+    np.testing.assert_array_equal(
+        tiles.numpy(), np.asarray(jcp._pretile(jnp.asarray(x), 8, 8, 3, 3,
+                                               2)))
+    idx = rng.permutation(18)[:11]
+    out = cp._scatter(tiles[:11, 2:-2, 2:-2], torch.from_numpy(idx), 2, 3, 3,
+                      8, 8, 20, 24)
+    ref = jcp._scatter(jnp.asarray(tiles.numpy()[:11, 2:-2, 2:-2]),
+                       jnp.asarray(idx), 2, 3, 3, 8, 8, 20, 24)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_cpu_path_counts_no_launch():
+    bio.reset_launches()
+    stack = bio.wtile_stack(torch.zeros(1, 8, 16, 2), 4, 8, 1)
+    got = bio.band_gather(stack, torch.zeros(1, 3, dtype=torch.int32), 4, 6)
+    bio.block_scatter(got[:, :4, :8], torch.zeros(1, 3, dtype=torch.int32),
+                      1, 2, 2)
+    assert bio.launches == {"band_gather": 0, "block_scatter": 0}
+
+
+# --- on the card -----------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,tw,halo", [(64, 16, 2), (1, 16, 1), (1, 17, 1),
+                                       (3, 7, 0)])
+def test_block_io_kernels_match_plain_on_card(cuda_device, c, tw, halo):
+    """K5 and K6 equal their plain versions bitwise: 16-byte and scalar
+    copies, every tile (the last row block included)."""
+    g = torch.Generator().manual_seed(c + tw)
+    n, h, w, th = 2, 20, 70, 8
+    x = torch.randn(n, h, w, c, generator=g).to(cuda_device)
+    stack = bio.wtile_stack(x, th, tw, halo)
+    nh, nw = -(-h // th), -(-w // tw)
+    idx = torch.stack(torch.meshgrid(torch.arange(n), torch.arange(nh),
+                                     torch.arange(nw), indexing="ij"),
+                      -1).reshape(-1, 3)
+    idx = idx[torch.randperm(len(idx), generator=g)].to(torch.int32)
+    idx = idx.to(cuda_device)
+    before = dict(bio.launches)
+    for window_h in (th, th + 2 * halo):
+        out = bio.band_gather(stack, idx, th, window_h)
+        assert torch.equal(out, bio.band_gather_plain(stack, idx, th,
+                                                      window_h))
+    vals = torch.randn(len(idx) - 1, th, tw, c, generator=g).to(cuda_device)
+    out = bio.block_scatter(vals, idx[1:], n, nh, nw)
+    assert torch.equal(out, bio.block_scatter_plain(vals, idx[1:], n, nh,
+                                                    nw))
+    torch.cuda.synchronize()
+    assert bio.launches["band_gather"] == before["band_gather"] + 2
+    assert bio.launches["block_scatter"] == before["block_scatter"] + 1
+
+
+@pytest.mark.cuda
+def test_block_io_kernels_reject_bf16_on_card(cuda_device):
+    stack = torch.zeros(1, 1, 3, 4, 8, 1, device=cuda_device,
+                        dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        bio.band_gather(stack, torch.zeros(1, 3, dtype=torch.int32,
+                                           device=cuda_device), 4, 4)

@@ -94,14 +94,17 @@ def _feats_t(jax_model):
 
 
 def _assert_outputs(ours, ref, atol):
+    """Masks, op counts and overflow exactly; floats within atol plus 1e-5
+    relative: LL values reach 2^4, where the f32 spacing is 1.9e-6, and
+    XLA-CPU and ATen sum the 3x3 convs in different orders."""
     for k, v in ref.items():
         assert k in ours, k
         o = ours[k].numpy()
-        if k[0].endswith("mask") or k[0] == "total_ops":
+        if k[0].endswith("mask") or k[0] in ("total_ops", "overflow"):
             np.testing.assert_array_equal(o, np.asarray(v), err_msg=str(k))
         else:
             np.testing.assert_allclose(o, np.asarray(v), atol=atol,
-                                       err_msg=str(k))
+                                       rtol=1e-5, err_msg=str(k))
 
 
 def test_bridge_equals_jax_exporter_and_loads_strict(jax_model):
@@ -299,9 +302,3 @@ def test_unported_options_raise():
         ResnetEncoder(50)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KittiWaveletDecoder((64, 64, 128, 256, 512), use_polyphase=True)
-    dec = KittiWaveletDecoder((64, 64, 128, 256, 512))
-    feats = [torch.zeros(1, 32 // 2 ** i, 32 // 2 ** i, c)
-             for i, c in enumerate((64, 64, 128, 256, 512))]
-    for backend in ("capacity", "compact", "sites"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dec(feats, thresh_ratio=0.1, use_pallas=backend)

@@ -64,6 +64,11 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.utils.logging",
     "wavelet_monodepth_tpu_torch.utils.device",
     "wavelet_monodepth_tpu_torch.tools.train_kitti",
+    "wavelet_monodepth_tpu_torch.ops.blockio",
+    "wavelet_monodepth_tpu_torch.ops.compact",
+    "wavelet_monodepth_tpu_torch.ops.sites",
+    "wavelet_monodepth_tpu_torch.ops.capacity",
+    "wavelet_monodepth_tpu_torch.ops.fused_stage",
 ]
 
 

@@ -16,8 +16,13 @@ Output contract (NHWC), the JAX package's tuple keys:
 `use_pallas` picks the sparse backend: False/"xla" masked dense (cuDNN,
 the oracle), True/"pallas" and "pallas2d" the tile-sparse CUDA kernel,
 launched 4 times per sparse scale (upconv_i_0, upconv_i_1, the pos and
-neg heads' 3x3). The "capacity", "compact" and "sites" backends and
-`use_polyphase` are not ported yet.
+neg heads' 3x3); "capacity" per-conv top-K tile compaction
+(`ops/capacity.py`); "compact" whole-stage tile compaction
+(`ops/compact.py`, whose gathers and scatters are the block IO kernels,
+6 + 2 launches per sparse scale) and "sites" whole-stage site compaction
+(`ops/sites.py`). `compact_cap` is the capacity ratio of the three
+compacted backends; their dropped tiles or sites are ("overflow", s).
+`use_polyphase` is not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +34,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import sparse as sp
+from ..ops.capacity import conv_capacity_overflow
+from ..ops.compact import (compact_wave_stage, default_tile_shape,
+                           stage_capacity_overflow)
 from ..ops.convops import conv1x1, conv3x3
+from ..ops.sites import site_wave_stage, stage_site_overflow
 from ..ops.wavelets import haar_idwt
 from .layers import ConvBlock, WaveConv, sparse_backend, upsample_concat
 
@@ -73,34 +82,72 @@ class KittiWaveletDecoder(nn.Module):
     def forward(self, features: Sequence[Tensor],
                 thresh_ratio: Optional[float] = None,
                 sparse_scales: Sequence[int] = (1, 2, 3),
-                use_pallas=False,
+                use_pallas=False, compact_cap: float = 0.5,
                 mask_override: Optional[dict] = None) -> dict:
-        """mask_override: {scale i: (N, Hl, Wl, 1) raw mask} replaces the
+        """compact_cap: the capacity ratio of the "compact" (per stage),
+        "sites" (per stage, scaled per site set) and "capacity" (per conv)
+        backends; active tiles or sites beyond it are dropped.
+        mask_override: {scale i: (N, Hl, Wl, 1) raw mask} replaces the
         threshold mask at those scales (dilations still run)."""
         if thresh_ratio is None:
             return self._dense(features)
         return self._sparse(features, thresh_ratio, tuple(sparse_scales),
-                            use_pallas, mask_override)
+                            use_pallas, compact_cap, mask_override)
 
     def _coefficients(self, x: Tensor, i: int, want_ll: bool,
                       in_mask: Optional[Tensor] = None,
                       out_mask: Optional[Tensor] = None,
-                      backend: str = "xla"):
+                      backend: str = "xla", capacity_ratio: float = 0.5):
         """(LL, HF) heads at scale i: yl = 2^i * sigmoid(ll-head),
         yh = 2^(i-1) * (sigmoid(pos) - sigmoid(neg))."""
         yl = None
         if want_ll:
             yl = (2.0 ** i) * self.blocks["waveconv_4_ll"](
                 x, in_mask, out_mask)
-        if backend == "xla":
+        if backend in ("xla", "compact", "sites"):
             yh = (2.0 ** (i - 1)) * self._paired_heads(x, i, in_mask,
                                                        out_mask)
             return yl, yh
         pos = self.blocks[f"waveconv_{i}_pos"](
-            x, in_mask, out_mask, use_pallas=backend)
+            x, in_mask, out_mask, use_pallas=backend,
+            capacity_ratio=capacity_ratio)
         neg = self.blocks[f"waveconv_{i}_neg"](
-            x, in_mask, out_mask, use_pallas=backend)
+            x, in_mask, out_mask, use_pallas=backend,
+            capacity_ratio=capacity_ratio)
         return yl, (2.0 ** (i - 1)) * (pos - neg)
+
+    def stage_params(self, i: int) -> tuple:
+        """Scale i's 12 parameters in the compacted stages' order and JAX
+        layout: upconv_i_0 and upconv_i_1 (HWIO weight, bias), then the pos
+        and neg heads (1x1 HWIO, bias, 3x3 HWIO, bias). The HWIO copies
+        are cached on the layers."""
+        c0 = self.blocks[f"upconv_{i}_0"].conv
+        c1 = self.blocks[f"upconv_{i}_1"].conv
+        params = [c0.hwio_weight(), c0.conv.bias, c1.hwio_weight(),
+                  c1.conv.bias]
+        for head in ("pos", "neg"):
+            wave = self.blocks[f"waveconv_{i}_{head}"]
+            params += [wave[0].hwio_weight(), wave[0].conv.bias,
+                       wave[2].hwio_weight(), wave[2].conv.bias]
+        return tuple(p.detach() for p in params)
+
+    def _compact_stage(self, x: Tensor, skip: Tensor, mask: Tensor, i: int,
+                       cap_ratio: float, backend: str):
+        """Whole-stage compacted execution of scale i: "compact" = tile
+        granularity (ops/compact.py), "sites" = pixel granularity
+        (ops/sites.py). Returns (yh, x1, overflow)."""
+        params = self.stage_params(i)
+        if backend == "sites":
+            caps = {"cap_hi": min(1.0, 2 * cap_ratio),
+                    "cap_lo": min(1.0, 2.8 * cap_ratio),
+                    "cap_wav": min(1.0, 1.4 * cap_ratio)}
+            yh, x1 = site_wave_stage(x, skip, mask, *params, i_scale=i,
+                                     **caps)
+            return yh, x1, stage_site_overflow(mask, **caps)
+        th, tw = default_tile_shape(2 * x.shape[1], 2 * x.shape[2])
+        yh, x1 = compact_wave_stage(x, skip, mask, *params, i_scale=i,
+                                    th=th, tw=tw, cap_ratio=cap_ratio)
+        return yh, x1, stage_capacity_overflow(mask, th, tw, cap_ratio)
 
     def _paired_heads(self, x: Tensor, i: int,
                       in_mask: Optional[Tensor] = None,
@@ -155,6 +202,7 @@ class KittiWaveletDecoder(nn.Module):
 
     def _sparse(self, features: Sequence[Tensor], thresh_ratio,
                 sparse_scales: tuple, use_pallas=False,
+                compact_cap: float = 0.5,
                 mask_override: Optional[dict] = None) -> dict:
         backend = sparse_backend(use_pallas)
         outputs = {}
@@ -189,19 +237,36 @@ class KittiWaveletDecoder(nn.Module):
                 for key in ("lowres", "upconv0", "upsample", "upconv1"):
                     scale_ops += sp.ops_mask2idxmap(masks[key])
                 ichn0 = x.shape[-1]
-                x = self.blocks[f"upconv_{i}_0"](
-                    x, in_mask=masks["lowres"], out_mask=masks["upconv0"],
-                    use_pallas=backend)
+                # tiles or sites dropped past the capacity: 0 = this scale
+                # matched the oracle
+                if backend in ("compact", "sites"):
+                    yh, x, outputs[("overflow", s)] = self._compact_stage(
+                        x, skip, mask, i, compact_cap, backend)
+                else:
+                    if backend == "capacity":
+                        outputs[("overflow", s)] = (
+                            conv_capacity_overflow(
+                                masks["upconv0"], capacity_ratio=compact_cap)
+                            + conv_capacity_overflow(
+                                masks["upconv1"], capacity_ratio=compact_cap)
+                            + 2 * conv_capacity_overflow(
+                                masks["wavelet"], capacity_ratio=compact_cap))
+                    x = self.blocks[f"upconv_{i}_0"](
+                        x, in_mask=masks["lowres"],
+                        out_mask=masks["upconv0"], use_pallas=backend,
+                        capacity_ratio=compact_cap)
+                    x = upsample_concat(x, skip, out_mask=masks["upsample"])
+                    x = self.blocks[f"upconv_{i}_1"](
+                        x, out_mask=masks["upconv1"], use_pallas=backend,
+                        capacity_ratio=compact_cap)
+                    _, yh = self._coefficients(
+                        x, i, want_ll=False, in_mask=masks["upconv1"],
+                        out_mask=masks["wavelet"], backend=backend,
+                        capacity_ratio=compact_cap)
                 scale_ops += sp.ops_sparse_conv3x3(
                     sp.mask_count(masks["upconv0"]), ichn0, NUM_CH_DEC[i])
-                x = upsample_concat(x, skip, out_mask=masks["upsample"])
-                x = self.blocks[f"upconv_{i}_1"](
-                    x, out_mask=masks["upconv1"], use_pallas=backend)
                 scale_ops += sp.ops_sparse_conv3x3(
                     sp.mask_count(masks["upconv1"]), ichn1, NUM_CH_DEC[i])
-                _, yh = self._coefficients(
-                    x, i, want_ll=False, in_mask=masks["upconv1"],
-                    out_mask=masks["wavelet"], backend=backend)
                 n_in = sp.mask_count(masks["upconv1"])
                 n_out = sp.mask_count(masks["wavelet"])
                 for _ in range(2):   # pos + neg heads

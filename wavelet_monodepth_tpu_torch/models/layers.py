@@ -10,8 +10,11 @@ reference checkpoints load with `strict=True`.
 `use_pallas` selects the sparse backend when an out_mask is present:
 False/"xla" = masked dense (the oracle, cuDNN), True/"pallas" = the
 row-stripe tile-skip kernel, "pallas2d" = the 2-D tile-skip kernel (both
-`ops/tile_sparse_conv.py`). The JAX package's "capacity" backend is not
-ported yet.
+`ops/tile_sparse_conv.py`), "capacity" = per-conv top-K tile compaction
+(`ops/capacity.py`, `capacity_ratio`). "compact" and "sites" are
+whole-stage backends of the decoder (`models/decoders_kitti.py`); a layer
+given one of them with an out_mask takes the row-stripe kernel, as the
+JAX package's layers do.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import capacity as cap
 from ..ops import convops
 from ..ops import tile_sparse_conv as tsc
 from ..ops.image import upsample_nearest2x
@@ -52,17 +56,26 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+BACKENDS = ("xla", "pallas", "pallas2d", "capacity", "compact", "sites")
+
+
 def sparse_backend(use_pallas) -> str:
-    """Normalise `use_pallas` to 'xla', 'pallas' or 'pallas2d'."""
+    """Normalise `use_pallas` to one of BACKENDS."""
     backend = use_pallas if isinstance(use_pallas, str) else (
         "pallas" if use_pallas else "xla")
-    if backend in ("capacity", "compact", "sites"):
-        raise NotImplementedError(
-            f"use_pallas={backend!r} is not ported yet (ROADMAP.md, Queue 1 "
-            "item 5: alternative sparse backends)")
-    if backend not in ("xla", "pallas", "pallas2d"):
+    if backend not in BACKENDS:
         raise ValueError(f"unknown sparse backend use_pallas={use_pallas!r}")
     return backend
+
+
+def _hwio(owner: nn.Module, w: Tensor) -> Tensor:
+    """`w` (OIHW) as contiguous HWIO, kept on `owner` between calls (a copy
+    per call would add a kernel to each) and re-made when the parameter
+    changes (load_state_dict bumps its version)."""
+    key = (w.data_ptr(), w._version, w.device)
+    if owner._hwio is None or owner._hwio[0] != key:
+        owner._hwio = (key, w.detach().permute(2, 3, 1, 0).contiguous())
+    return owner._hwio[1]
 
 
 class Conv3x3(nn.Module):
@@ -76,22 +89,21 @@ class Conv3x3(nn.Module):
         self._hwio = None        # (weight version, HWIO copy) for the kernel
 
     def hwio_weight(self) -> Tensor:
-        """The weight as contiguous HWIO for the kernel, kept between calls
-        (a copy per launch would add a kernel to each) and re-made when the
-        parameter changes (load_state_dict bumps its version)."""
-        w = self.conv.weight
-        key = (w.data_ptr(), w._version, w.device)
-        if self._hwio is None or self._hwio[0] != key:
-            self._hwio = (key, w.detach().permute(2, 3, 1, 0).contiguous())
-        return self._hwio[1]
+        """The weight as contiguous HWIO (the kernels' and the compacted
+        stages' layout), cached."""
+        return _hwio(self, self.conv.weight)
 
     def forward(self, x: Tensor, in_mask: Optional[Tensor] = None,
                 out_mask: Optional[Tensor] = None,
                 nonlin: Optional[Callable[[Tensor], Tensor]] = None,
-                use_pallas=False) -> Tensor:
+                use_pallas=False, capacity_ratio: float = 0.5) -> Tensor:
         if in_mask is not None:
             x = x * in_mask
         backend = sparse_backend(use_pallas)
+        if backend == "capacity" and out_mask is not None:
+            return cap.conv3x3_capacity_sparse(
+                x, self.hwio_weight(), self.conv.bias.detach(), out_mask,
+                self.pad_mode, nonlin, capacity_ratio=capacity_ratio)
         if backend != "xla" and out_mask is not None:
             fn = (tsc.conv3x3_tile_sparse_2d if backend == "pallas2d"
                   else tsc.conv3x3_tile_sparse)
@@ -114,6 +126,11 @@ class Conv1x1(nn.Module):
     def __init__(self, in_features: int, features: int):
         super().__init__()
         self.conv = nn.Conv2d(in_features, features, 1)
+        self._hwio = None
+
+    def hwio_weight(self) -> Tensor:
+        """The weight as contiguous (1, 1, Cin, Cout) HWIO, cached."""
+        return _hwio(self, self.conv.weight)
 
     def forward(self, x: Tensor, mask: Optional[Tensor] = None) -> Tensor:
         y = convops.conv1x1(x, self.conv.weight, self.conv.bias)
@@ -132,9 +149,10 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: Tensor, in_mask: Optional[Tensor] = None,
                 out_mask: Optional[Tensor] = None,
-                use_pallas=False) -> Tensor:
+                use_pallas=False, capacity_ratio: float = 0.5) -> Tensor:
         return self.conv(x, in_mask, out_mask, nonlin=F.elu,
-                         use_pallas=use_pallas)
+                         use_pallas=use_pallas,
+                         capacity_ratio=capacity_ratio)
 
 
 class WaveConv(nn.Sequential):
@@ -151,7 +169,8 @@ class WaveConv(nn.Sequential):
     def forward(self, x: Tensor, in_mask: Optional[Tensor] = None,
                 out_mask: Optional[Tensor] = None,
                 final_nonlin: Optional[Callable[[Tensor], Tensor]]
-                = torch.sigmoid, use_pallas=False) -> Tensor:
+                = torch.sigmoid, use_pallas=False,
+                capacity_ratio: float = 0.5) -> Tensor:
         if in_mask is not None:
             x = x * in_mask
         h = F.leaky_relu(self[0](x), negative_slope=0.1)
@@ -159,7 +178,8 @@ class WaveConv(nn.Sequential):
             h = h * in_mask
         if use_pallas and out_mask is not None:
             return self[2](h, None, out_mask, nonlin=final_nonlin,
-                           use_pallas=use_pallas)
+                           use_pallas=use_pallas,
+                           capacity_ratio=capacity_ratio)
         y = self[2](h)
         if final_nonlin is not None:
             y = final_nonlin(y)

@@ -1,0 +1,208 @@
+"""Block-granular gather and scatter for the tile-compact sparse engine
+(K5, K6).
+
+Counterpart of `wavelet_monodepth_tpu/ops/blockio.py`, with the same
+public functions and signatures (less the TPU-only `interpret`):
+
+  wtile_stack    (N, H, W, C) -> (N, nw, nh+1, th, tw + 2*halo, C), the
+                 W-halo-tiled stack both kernels index; plain torch
+  band_gather    copy the (window_h <= 2*th)-row halo window of each
+                 active tile out of two vertically adjacent blocks   (K5)
+  block_scatter  write (K, th, tw, C) tiles to their (n, ty, tx) home in
+                 a zeros canvas (N, nh*th, nw*tw, C)                 (K6)
+
+Both are pure copies. On a CUDA tensor they launch the hand-written
+Hopper kernels of `csrc/blockio.cu` or raise; on a CPU tensor they run
+`band_gather_plain` / `block_scatter_plain`, which are also what the
+kernels are checked against on the card (bitwise: nothing is summed).
+
+`launches` counts kernel launches per wrapper; the CPU path never counts.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .image import pad2d
+
+Tensor = torch.Tensor
+
+# kernel launches per wrapper since the last reset_launches()
+launches = {"band_gather": 0, "block_scatter": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def wtile_stack(x: Tensor, th: int, tw: int, halo: int,
+                pad_mode: str = "reflect") -> Tensor:
+    """(N, H, W, C) -> (N, nw, nh+1, th, tw + 2*halo, C): W-halo-tiled, H
+    split into th-row blocks so a window of th + 2*halo rows starting at
+    any tile row lives in two vertically adjacent blocks.
+
+    The image is padded by `halo` with pad_mode (the oracle's pad2d around
+    the true image), then zero-extended to the block grid."""
+    n, h, w, c = x.shape
+    if th < 2 * halo or tw < 2 * halo:
+        raise ValueError("band windows need tile >= 2*halo")
+    nh, nw = -(-h // th), -(-w // tw)
+    if halo:
+        x = pad2d(x, halo, pad_mode)
+    x = F.pad(x, (0, 0, 0, nw * tw + 2 * halo - x.shape[2],
+                  0, (nh + 1) * th - x.shape[1]))
+    cols = torch.stack([x[:, :, j * tw:j * tw + tw + 2 * halo]
+                        for j in range(nw)], dim=1)
+    return cols.reshape(n, nw, nh + 1, th, tw + 2 * halo, c)
+
+
+def band_gather_plain(stack: Tensor, idx: Tensor, th: int,
+                      window_h: int) -> Tensor:
+    """The plain PyTorch version of band_gather: the top block's rows, then
+    the block below it, cut to window_h rows."""
+    b, ty, tx = (idx[:, j].long() for j in range(3))
+    band = torch.cat([stack[b, tx, ty], stack[b, tx, ty + 1]], dim=1)
+    return band[:, :window_h].contiguous()
+
+
+def block_scatter_plain(vals: Tensor, idx: Tensor, n: int, nh: int,
+                        nw: int) -> Tensor:
+    """The plain PyTorch version of block_scatter."""
+    k, th, tw, c = vals.shape
+    out = vals.new_zeros((n, nh, nw, th, tw, c))
+    b, ty, tx = (idx[:, j].long() for j in range(3))
+    out[b, ty, tx] = vals
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(n, nh * th, nw * tw, c)
+
+
+def band_gather(stack: Tensor, idx: Tensor, th: int,
+                window_h: int) -> Tensor:
+    """Gather halo windows for the active tiles.
+
+    Args:
+      stack: (N, nw, nh+1, th, twp, C) from wtile_stack.
+      idx: (K, 3) int32 rows (n, ty, tx); ty in [0, nh).
+      window_h: rows per window (th + 2*halo), must be <= 2*th.
+    Returns (K, window_h, twp, C).
+    """
+    n, nw, nhp, th_, twp, c = stack.shape
+    if th_ != th or window_h > 2 * th:
+        raise ValueError(f"band_gather needs the stack's block height "
+                         f"{th_} == th {th} and window_h {window_h} <= "
+                         f"2*th")
+    _check_idx(idx, stack)
+    if _on_cpu(stack):
+        return band_gather_plain(stack, idx, th, window_h)
+    return _launch_gather(stack, idx, window_h)
+
+
+def block_scatter(vals: Tensor, idx: Tensor, n: int, nh: int,
+                  nw: int) -> Tensor:
+    """Scatter (K, th, tw, C) tiles to a dense (N, nh*th, nw*tw, C) zeros
+    canvas at block positions idx (K, 3) = (n, ty, tx). The idx rows must
+    be distinct and inside the (n, nh, nw) grid: the wrapper checks both
+    (a host sync on the card)."""
+    _check_idx(idx, vals)
+    b, ty, tx = (idx[:, j].long() for j in range(3))
+    lin = (b * nh + ty) * nw + tx
+    ok = (((idx >= 0).all() & (b < n).all() & (ty < nh).all()
+           & (tx < nw).all()) if idx.numel() else torch.tensor(True))
+    if not bool(ok) or lin.unique().numel() != lin.numel():
+        raise ValueError("block_scatter needs distinct idx rows inside the "
+                         f"({n}, {nh}, {nw}) block grid")
+    if _on_cpu(vals):
+        return block_scatter_plain(vals, idx, n, nh, nw)
+    return _launch_scatter(vals, idx, n, nh, nw)
+
+
+def _check_idx(idx: Tensor, like: Tensor) -> None:
+    if idx.dim() != 2 or idx.shape[1] != 3:
+        raise ValueError(f"idx must be (K, 3), got {tuple(idx.shape)}")
+    if idx.device != like.device:
+        raise ValueError(f"idx is on {idx.device}, data on {like.device}")
+
+
+def _on_cpu(x: Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"block IO runs on CPU or CUDA tensors, not "
+                         f"{x.device}")
+    return False
+
+
+# --- the kernels -------------------------------------------------------------
+
+_lib = None
+
+
+def _kernel_lib():
+    global _lib
+    if _lib is None:
+        from ..kernels import build
+        lib = build.load("blockio")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.band_gather_f32.argtypes = [p] * 3 + [i] * 8 + [p]
+        lib.band_gather_f32.restype = i
+        lib.block_scatter_f32.argtypes = [p] * 3 + [i] * 8 + [p]
+        lib.block_scatter_f32.restype = i
+        lib.blockio_error_string.argtypes = [i]
+        lib.blockio_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check_kernel_inputs(data: Tensor, idx: Tensor) -> Tensor:
+    if data.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernel takes float32; got {data.dtype}")
+    if not data.is_contiguous():
+        raise ValueError("the block IO kernels need contiguous data")
+    if data.numel() >= 2 ** 31:
+        raise ValueError("block IO kernels index with 32-bit offsets")
+    return idx.to(torch.int32).contiguous()
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + _kernel_lib().blockio_error_string(err).decode())
+
+
+def _launch_gather(stack: Tensor, idx: Tensor, window_h: int) -> Tensor:
+    idx = _check_kernel_inputs(stack, idx)
+    n, nw, nhp, th, twp, c = stack.shape
+    k = idx.shape[0]
+    out = torch.empty((k, window_h, twp, c), dtype=torch.float32,
+                      device=stack.device)
+    if out.numel() == 0:
+        return out
+    lib = _kernel_lib()
+    stream = torch.cuda.current_stream(stack.device).cuda_stream
+    _raise_on(lib.band_gather_f32(
+        stack.data_ptr(), idx.data_ptr(), out.data_ptr(), k, n, nw, nhp,
+        th, twp * c, window_h, stack.device.index, stream), "band_gather")
+    launches["band_gather"] += 1
+    return out
+
+
+def _launch_scatter(vals: Tensor, idx: Tensor, n: int, nh: int,
+                    nw: int) -> Tensor:
+    """The zeros canvas and the kernel, without block_scatter's idx check
+    (chip_smoke.py times this)."""
+    idx = _check_kernel_inputs(vals, idx)
+    k, th, tw, c = vals.shape
+    out = torch.zeros((n, nh * th, nw * tw, c), dtype=torch.float32,
+                      device=vals.device)
+    if vals.numel() == 0:
+        return out
+    lib = _kernel_lib()
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    _raise_on(lib.block_scatter_f32(
+        vals.data_ptr(), idx.data_ptr(), out.data_ptr(), k, n, nh, nw, th,
+        tw, c, vals.device.index, stream), "block_scatter")
+    launches["block_scatter"] += 1
+    return out

@@ -59,12 +59,15 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def load_model(args, device, use_pallas=False):
+def load_model(args, device, use_pallas=False, compact_cap=0.5):
     """Build the encoder and decoder from --torch_model_path on `device`.
     Returns (forward, (feed_h, feed_w)); forward(image (N, H, W, 3) float
     tensor on `device`, thresh or None) -> the decoder's output dict.
-    `use_pallas` is the decoder's sparse backend (False/"xla", True /
-    "pallas", "pallas2d")."""
+    `use_pallas` is the decoder's sparse backend: False/"xla" (masked
+    dense), True/"pallas" and "pallas2d" (the tile-sparse conv kernel),
+    "capacity", "compact" (the block IO kernels) or "sites";
+    `compact_cap` is the capacity ratio of the last three. The CLI serves
+    the default backend."""
     from ..models.decoders_kitti import KittiWaveletDecoder
     from ..models.resnet import ResnetEncoder
     from . import torch_import as ti
@@ -100,7 +103,8 @@ def load_model(args, device, use_pallas=False):
         feats = encoder(image)
         if thresh is None:
             return decoder(feats)
-        return decoder(feats, thresh_ratio=thresh, use_pallas=use_pallas)
+        return decoder(feats, thresh_ratio=thresh, use_pallas=use_pallas,
+                       compact_cap=compact_cap)
 
     return forward, (feed_h, feed_w)
 
