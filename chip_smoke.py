@@ -41,7 +41,10 @@ phases; any failure raises and exits non-zero:
      the 10% maskgen, all-zero and all-one masks;
   6. serving times (CUDA events, warm-up, median of 3 interleaved windows
      with min and max): per-conv kernel vs plain vs cuDNN's F.conv2d with
-     each conv's bound, whole forward dense vs sparse xla / pallas /
+     each conv's bound at float32 accuracy (3xTF32 tensor rate or bytes)
+     and at the f32 CUDA-core rate, the share of active stripe and (8, 64)
+     tile granules, the FLOPs over them and each wrapper's rate on them;
+     whole forward dense vs sparse xla / pallas /
      pallas2d / compact / sites / capacity (compact_cap 0.5, and 1.0 for
      compact and capacity) at B=16 and B=1; K5 and K6
      summed over one B=16 compact forward's launches; K2 per scale at
@@ -72,8 +75,9 @@ phases; any failure raises and exits non-zero:
      one of an "on" step with input shapes (device time by ATen op);
      its costliest op, a decoder conv, alone (B=12 and B=16, cuDNN's
      heuristic vs benchmark); K3
-     forward and backward per launch against the plain version,
-     F.grid_sample and their bound.
+     forward (alone and after its torch coordinate chain) and backward
+     per launch against the plain version, F.grid_sample and their
+     bound.
 
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
@@ -127,10 +131,13 @@ COMPACTED = ("compact", "sites", "capacity")
 # inputs, xla its features), widened by the next stages' convs and
 # upsampling and doubled by each IDWT; scale 3 comes from the dense stage
 COMPACT_RING = {3: 0, 2: 4, 1: 16, 0: 36}
-# the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s
-# and float32 FLOP/s outside the tensor cores
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s,
+# float32 FLOP/s outside the tensor cores, and the dense TF32 tensor rate
+# over 3: float32 accuracy on the tensor cores in 3xTF32 (three products
+# per multiply-add), the tile conv's route
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+TF32X3_FLOPS = 495e12 / 3
 
 _card = {}
 
@@ -747,10 +754,12 @@ def time_variants(variants: dict, iters: int, windows: int = 3,
 
 
 def conv_bound_ms(m, cin: int, cout: int):
-    """(bound ms, bound by) of one masked 3x3 conv: the FLOPs of its
-    active outputs at the f32 CUDA-core peak, or the bytes it must move
+    """(bound ms, bound by, the bound at the f32 CUDA-core rate) of one
+    masked 3x3 conv: the least time at float32 accuracy, the FLOPs of its
+    active outputs at the 3xTF32 tensor rate or the bytes it must move
     (the input pixels those outputs read, weights, mask, the whole
-    output) at HBM rate, whichever takes longer."""
+    output) at HBM rate, whichever takes longer; the third value puts the
+    FLOPs at the CUDA cores' f32 peak instead (the bound PRs 1-3 used)."""
     import torch.nn.functional as F
     n, h, w, _ = m.shape
     active = float(m.sum())
@@ -758,9 +767,30 @@ def conv_bound_ms(m, cin: int, cout: int):
     flops = 2.0 * 9 * cin * cout * active
     nbytes = 4.0 * (needed * cin + 9 * cin * cout + cout + n * h * w
                     + n * h * w * cout)
-    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                 else "bytes")
+    t_ops, t_bytes = flops / TF32X3_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes
+            else "bytes", max(flops / F32_FLOPS * 1e3, t_bytes))
+
+
+def granule_work(m, cin: int, cout: int) -> dict:
+    """Per flag mode (K1's 8-row stripes, K4's (8, 64) tiles): the share of
+    granules with an active pixel, and the dense conv FLOPs over the
+    pixels of those granules (what the kernel computes)."""
+    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
+    n, h, w, _ = m.shape
+    hp, wp = -(-h // 8) * 8, -(-w // 64) * 64
+    out = {}
+    for key, flags, shape in (
+            ("conv3x3_tile_sparse", tsc.stripe_flags(m, 8), (n, hp // 8, 1)),
+            ("conv3x3_tile_sparse_2d", tsc.tile_flags_2d(m, 8, 64),
+             (n, hp // 8, wp // 64))):
+        f = flags.reshape(shape).float()
+        px = f.repeat_interleave(8, 1)[:, :h]
+        px = (px.repeat_interleave(64, 2)[:, :, :w] if shape[2] > 1
+              else px.expand(n, h, w))
+        out[key] = {"active_share": float(f.mean()),
+                    "active_flops": 2.0 * 9 * cin * cout * float(px.sum())}
+    return out
 
 
 def phase_times(dev, enc, dec, kernel_ms):
@@ -793,7 +823,11 @@ def phase_times(dev, enc, dec, kernel_ms):
                     "library_conv2d": lambda: F.conv2d(x_nchw, w_oihw, b,
                                                        padding=1),
                 }, iters=20)
-            bound, by = conv_bound_ms(m, cin, cout)
+            bound, by, bound_f32 = conv_bound_ms(m, cin, cout)
+            work = granule_work(m, cin, cout)
+            for k in KERNELS:
+                work[k]["achieved_tflops"] = (work[k]["active_flops"]
+                                              / t[k]["ms_median"] / 1e9)
             reps = 2 if "pos/neg" in conv else 1
             if batch == 16:
                 bound_by[by] += reps * bound
@@ -801,12 +835,16 @@ def phase_times(dev, enc, dec, kernel_ms):
                     kernel_ms[k]["ms"] += reps * t[k]["ms_median"]
                     kernel_ms[k]["plain_ms"] += reps * t["plain"]["ms_median"]
                     kernel_ms[k]["bound_ms"] += reps * bound
+                    kernel_ms[k]["bound_ms_f32_cuda_cores"] += reps * bound_f32
                     kernel_ms[k]["library_ms"] += (
                         reps * t["library_conv2d"]["ms_median"])
             emit({"phase": "time_conv", "conv": conv, "batch": batch,
                   "shape": [h, w, cin, cout],
-                  "mask_density": float(m.mean()), "bound_ms": bound,
-                  "bound_by": by, **t, **_card})
+                  "mask_density": float(m.mean()),
+                  "masked_flops": 2.0 * 9 * cin * cout * float(m.sum()),
+                  "bound_ms": bound, "bound_by": by,
+                  "bound_ms_f32_cuda_cores": bound_f32, "granules": work,
+                  **t, **_card})
 
         img = torch.rand(batch, H, W, 3, generator=g).to(dev)
         mo = {i: m.to(dev) for i, m in raw.items()}
@@ -1646,6 +1684,11 @@ def phase_train_times(dev, root: str, batch):
     with torch.no_grad():
         fwd = time_variants({
             "kernel": lambda: warp._launch_fwd(img, x, yr),
+            # the coordinate chain in torch and the kernel: what one
+            # forward warp of the step costs, against grid_sample's one
+            # call on the grid
+            "kernel_with_coords": lambda: warp._launch_fwd(
+                img, *warp.banded_coords(grid, h, w)),
             "plain": lambda: warp.banded_warp_plain(img, x, yr),
             "library_grid_sample": lambda: F.grid_sample(
                 img_nchw, grid, padding_mode="border", align_corners=False),
@@ -1665,7 +1708,8 @@ def phase_train_times(dev, root: str, batch):
     bounds = {"fwd": warp_bound_ms(n, h, w, c, False, False),
               "bwd": warp_bound_ms(n, h, w, c, True, False),
               "bwd_with_src": warp_bound_ms(n, h, w, c, True, True)}
-    emit({"phase": "time_warp", "shape": [n, h, w, c], "fwd": fwd,
+    emit({"phase": "time_warp", "shape": [n, h, w, c],
+          "fwd_band_rows": warp.band_rows(img), "fwd": fwd,
           "bwd": bwd, **fwd_bwd_lib, "bound_ms": bounds,
           "kernel_launches_while_timing": timed, **_card})
     return {"banded_warp_fwd": {
@@ -1694,7 +1738,8 @@ def main():
     phase_block_io_vs_plain(dev, enc, dec, errs)
     fused_launches, fused_inputs = phase_fused_stage(dev, enc, dec, errs)
     kernel_ms = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                     "library_ms": 0.0} for k in KERNELS}
+                     "library_ms": 0.0, "bound_ms_f32_cuda_cores": 0.0}
+                 for k in KERNELS}
     phase_times(dev, enc, dec, kernel_ms)
     block_io_ms = phase_block_io_times(dev, enc, dec)
     fused_ms = phase_fused_times(dec, fused_inputs)

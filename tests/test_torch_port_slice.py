@@ -69,6 +69,7 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.ops.sites",
     "wavelet_monodepth_tpu_torch.ops.capacity",
     "wavelet_monodepth_tpu_torch.ops.fused_stage",
+    "wavelet_monodepth_tpu_torch.tools.kernel_ab",
 ]
 
 
@@ -104,6 +105,21 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                               env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_kernel_ab_refuses_without_a_card():
+    """The tree A/B timer needs a card: its run of a tree fails, and it
+    prints no summary."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    script = os.path.join(REPO, "wavelet_monodepth_tpu_torch", "tools",
+                          "kernel_ab.py")
+    proc = subprocess.run([sys.executable, script, REPO], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "needs a CUDA card" in proc.stderr
+    assert "summary" not in proc.stdout
 
 
 def test_maskgen_matches_jax():

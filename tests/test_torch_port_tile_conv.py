@@ -5,8 +5,11 @@ tests/test_pallas_conv.py runs them (interpret mode on the CPU).
 
 On the CPU the port's wrappers run their plain PyTorch version, so these
 tests hold that version, the flags and the wrappers' shape handling to
-JAX within 1e-5. The CUDA kernel itself is checked against the plain
-version by the `cuda`-marked tests at the end (and by chip_smoke.py).
+JAX within 1e-5. The CUDA kernel computes in 3xTF32 on the tensor cores;
+a numpy emulation of that arithmetic is held here to the kernel's 1e-4
+contract at the decoder's channel counts. The CUDA kernel itself is
+checked against the plain version by the `cuda`-marked tests at the end
+(and by chip_smoke.py).
 """
 
 import jax
@@ -183,6 +186,66 @@ def test_other_devices_raise():
                                 torch.zeros(2), torch.zeros(1, 8, 16, 1))
 
 
+# --- the kernel's arithmetic: 3xTF32 --------------------------------------
+
+def _tf32(a):
+    """float32 -> TF32 (10 mantissa bits), rounding to nearest with ties
+    away from zero, as cvt.rna.tf32.f32 does."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tf32_trunc(a):
+    """float32 -> TF32 by dropping the low 13 bits, as the tensor cores
+    read a float32 register given as a TF32 operand."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _im2col(x):
+    """(H, W, Cin) zero-padded -> (H * W, 9 * Cin) in HWIO's tap order."""
+    h, w, _ = x.shape
+    xp = np.pad(x, ((1, 1), (1, 1), (0, 0)))
+    return np.concatenate([xp[ky:ky + h, kx:kx + w].reshape(h * w, -1)
+                           for ky in range(3) for kx in range(3)], 1)
+
+
+@pytest.mark.parametrize("cin,cout", [(256, 128), (128, 3), (128, 64),
+                                      (64, 3), (64, 32), (96, 32), (32, 3)])
+def test_3xtf32_emulation_meets_the_contract(cin, cout):
+    """The kernel splits each operand v into hi = tf32(v) (rounded) and
+    lo = v - hi, which the tensor cores read truncated to TF32, and sums
+    lo*hi + hi*lo + hi*hi in float32 (products of TF32 values are exact
+    in float32). At the decoder convs' (Cin, Cout) that stays within the
+    1e-4 contract of a float64 conv; one TF32 product (hi*hi) does not."""
+    rng = np.random.RandomState(cin + cout)
+    x = rng.randn(8, 16, cin).astype(np.float32)
+    w = (rng.randn(3, 3, cin, cout) * 0.05).astype(np.float32)
+    a, b = _im2col(x), w.reshape(9 * cin, cout)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_trunc(a - a_hi), _tf32_trunc(b - b_hi)
+    three = (a_lo @ b_hi).astype(np.float32) + (a_hi @ b_lo) + (a_hi @ b_hi)
+    assert three.dtype == np.float32
+    assert np.abs(three - exact).max() <= 1e-4
+    assert np.abs((a_hi @ b_hi) - exact).max() > 1e-4
+
+
+def test_tf32_rounding_keeps_10_mantissa_bits():
+    """The rounding the kernel writes as two integer operations."""
+    v = np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11,
+                  1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11), 3.0e-3],
+                 np.float32)
+    t = _tf32(v)
+    np.testing.assert_array_equal(
+        t[:5], np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         1.0 + 2.0 ** -9, -(1.0 + 2.0 ** -10)], np.float32))
+    assert np.all(t.view(np.uint32) & np.uint32(0x1FFF) == 0)
+    assert abs(t[5] - v[5]) <= 2.0 ** -11 * v[5]
+    assert _tf32_trunc(np.float32(1.0 + 2.0 ** -11)) == 1.0
+
+
 # --- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -225,3 +288,80 @@ def test_kernel_rejects_bf16_on_card(cuda_device):
             x, torch.zeros(3, 3, 4, 2, device=cuda_device),
             torch.zeros(2, device=cuda_device),
             torch.zeros(1, 8, 16, 1, device=cuda_device))
+
+
+def _card_case(case, dev):
+    """(x, w, b, mask, tolerance) of an edge case, from a seeded CPU
+    generator."""
+    shapes = {"ragged": (2, 13, 70, 16, 40), "large_x": (2, 20, 72, 24, 16),
+              "cin33_cout17": (2, 20, 72, 33, 17),
+              "cin12_cout6": (2, 9, 130, 12, 6),
+              "all_zero": (2, 16, 128, 32, 32),
+              "all_one": (2, 16, 128, 32, 32),
+              "corner_pixel": (2, 24, 200, 64, 32)}
+    n, h, wd, cin, cout = shapes[case]
+    g = torch.Generator().manual_seed(len(case) * 7 + h)
+    x = torch.randn(n, h, wd, cin, generator=g)
+    w = torch.randn(3, 3, cin, cout, generator=g) * (2.0 / (9 * cin)) ** 0.5
+    if case == "large_x":
+        # |x| up to 1e2 with outputs of order 1: the split must keep the
+        # low bits of large operands
+        x = (torch.rand(n, h, wd, cin, generator=g) * 2 - 1) * 100.0
+        w = w * 0.01
+    b = torch.randn(cout, generator=g) * 0.1
+    m = (torch.rand(n, h, wd, 1, generator=g) > 0.8).float()
+    if case == "all_zero":
+        m = torch.zeros(n, h, wd, 1)
+    elif case == "all_one":
+        m = torch.ones(n, h, wd, 1)
+    elif case == "corner_pixel":
+        # one active pixel per image, at the last row and column of a
+        # granule: the whole granule is computed, the rest skipped
+        m = torch.zeros(n, h, wd, 1)
+        m[0, 7, 63] = 1.0
+        m[1, 23, 199] = 1.0
+    return [t.to(dev) for t in (x, w, b, m)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+@pytest.mark.parametrize("case", ["ragged", "large_x", "cin33_cout17",
+                                  "cin12_cout6", "all_zero", "all_one",
+                                  "corner_pixel"])
+def test_kernel_edge_cases_on_card(cuda_device, kernel, case):
+    """Ragged H (not a multiple of 8) and W (not of 64), a Cout that is
+    not a multiple of the 32-channel block, |x| up to 1e2, Cin not a
+    multiple of the 8-channel staging chunk (and not of 4: the 4-byte
+    staging path), all-zero / all-one masks and single-pixel granules,
+    every pad mode; within 1e-4 of the plain version."""
+    x, w, b, m = _card_case(case, cuda_device)
+    fn = {"K1": tsc.conv3x3_tile_sparse,
+          "K4": tsc.conv3x3_tile_sparse_2d}[kernel]
+    for pad_mode in ("reflect", "zero", "replicate"):
+        out = fn(x, w, b, m, pad_mode, tsc.elu)
+        ref = tsc.conv3x3_masked_plain(x, w, b, m, pad_mode, tsc.elu)
+        torch.cuda.synchronize()
+        assert out.shape == ref.shape and out.dtype == torch.float32
+        assert float((out - ref).abs().max()) <= 1e-4, pad_mode
+    if case == "all_zero":
+        assert not out.any()
+    if case == "corner_pixel":
+        assert int((out != 0).any(-1).sum()) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_kernel_is_not_plain_tf32_on_card(cuda_device, kernel):
+    """At 256 -> 128 channels the kernel agrees with float64 far better
+    than one TF32 product could (~1e-3, see the emulation test)."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1, 16, 64, 256, generator=g)
+    w = torch.randn(3, 3, 256, 128, generator=g) * 0.05
+    b, m = torch.zeros(128), torch.ones(1, 16, 64, 1)
+    exact = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1)
+    fn = {"K1": tsc.conv3x3_tile_sparse,
+          "K4": tsc.conv3x3_tile_sparse_2d}[kernel]
+    out = fn(*(t.to(cuda_device) for t in (x, w, b, m)), "zero")
+    assert float((out.cpu().double() - exact).abs().max()) <= 5e-5

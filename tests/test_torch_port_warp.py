@@ -27,8 +27,9 @@ torch.set_num_threads(1)
 H, W = 64, 96
 
 
-def _stereo(n=2, h=H, w=W, tx=0.1, seed=0, near=1.0):
-    """A row-banded stereo grid from random depth, and an image."""
+def _stereo(n=2, h=H, w=W, tx=0.1, seed=0, near=1.0, c=3):
+    """A row-banded stereo grid from random depth, and a C-channel
+    image."""
     rng = np.random.RandomState(seed)
     k = np.eye(4, dtype=np.float32)
     k[0, 0], k[1, 1] = 0.58 * w, 1.92 * h
@@ -41,7 +42,7 @@ def _stereo(n=2, h=H, w=W, tx=0.1, seed=0, near=1.0):
     depth = jnp.asarray(rng.rand(n, h, w, 1).astype(np.float32) * 30 + near)
     grid = np.asarray(project_3d(backproject_depth(depth, invkb), kb, tb,
                                  h, w))
-    img = rng.rand(n, h, w, 3).astype(np.float32)
+    img = rng.rand(n, h, w, c).astype(np.float32)
     return img, np.array(grid)
 
 
@@ -117,6 +118,23 @@ def test_ragged_shapes(h, w):
     g = np.random.RandomState(6).randn(*img.shape).astype(np.float32)
     ref, gi_r, gg_r = _jax_vjp(img, grid, g)
     ours, gi, gg = _port_grads(img, grid, g)
+    np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
+    assert _rel(gi, gi_r) <= 1e-5
+    assert _rel(gg, gg_r) <= 1e-5
+
+
+# the forward kernel's edge shapes: H not a multiple of its band of rows,
+# W not a multiple of 4 (nor of a warp's 128 pixels), C in {1, 3, 4}
+EDGE = [(13, 70, 1), (13, 70, 3), (13, 70, 4), (7, 97, 3), (5, 100, 4)]
+
+
+@pytest.mark.parametrize("h,w,c", EDGE)
+def test_edge_shapes_match_jax(h, w, c):
+    img, grid = _stereo(n=2, h=h, w=w, seed=h + w + c, c=c)
+    g = np.random.RandomState(c).randn(*img.shape).astype(np.float32)
+    ref, gi_r, gg_r = _jax_vjp(img, grid, g)
+    ours, gi, gg = _port_grads(img, grid, g)
+    assert ours.shape == (2, h, w, c)
     np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
     assert _rel(gi, gi_r) <= 1e-5
     assert _rel(gg, gg_r) <= 1e-5
@@ -215,3 +233,35 @@ def test_kernel_counts_and_rejects_bf16_on_card(cuda_device):
     x, yr = warp.banded_coords(tg.detach(), H, W)
     with pytest.raises(TypeError, match="float32"):
         warp.banded_warp(_on(cuda_device, img).bfloat16(), x, yr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", EDGE + [(5, 300, 4), (13, 70, 5),
+                                   (24, 640, 3)])
+@pytest.mark.parametrize("rows", [None, 1, 3, 5])
+def test_forward_bands_match_plain_on_card(cuda_device, h, w, c, rows):
+    """The forward kernel against the plain version for bands of 1, 3 and
+    5 rows and band_rows' own choice, at H not a multiple of the band, W
+    not a multiple of 4 or of a warp's 128 pixels, C in {1, 3, 4} (staged
+    16-byte stores where W * C % 4 == 0) and C = 5 (the any-C path);
+    within 1e-5."""
+    img, grid = _stereo(n=2, h=h, w=w, seed=h * w + c, c=c)
+    src = _on(cuda_device, img)
+    x, yr = warp.banded_coords(_on(cuda_device, grid), h, w)
+    before = warp.launches["banded_warp_fwd"]
+    out = warp._launch_fwd(src, x, yr, rows)
+    ref = warp.banded_warp_plain(src, x, yr)
+    torch.cuda.synchronize()
+    assert warp.launches["banded_warp_fwd"] == before + 1
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_band_rows_fill_the_card_and_raise_when_too_wide(cuda_device):
+    src = torch.zeros(12, 192, 640, 3, device=cuda_device)
+    rows = warp.band_rows(src)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert 1 <= rows <= 192
+    assert 12 * -(-192 // rows) >= sms       # the grid fills the card
+    with pytest.raises(ValueError, match="shared memory"):
+        warp.band_rows(torch.zeros(1, 4, 20000, 4, device=cuda_device))

@@ -10,11 +10,13 @@ public functions and signatures (less the TPU-only `interpret` and
 
 Both compute `nonlin(conv3x3(pad(x), w) + b) * out_mask` in float32 and
 return float32. On a CUDA tensor they launch the hand-written Hopper
-kernel `csrc/tile_sparse_conv.cu` (one kernel for both granularities) or
-raise; on a CPU tensor they run `conv3x3_masked_plain`, the masked-dense
-oracle of `ops/sparse.py`, which is also what the kernel is checked
-against on the card. Flags are reduced from the mask with torch ops, as
-the JAX package reduces them on the XLA side.
+kernel `csrc/tile_sparse_conv.cu` (one kernel for both granularities,
+3xTF32 on the tensor cores, within 1e-4 of float32) or raise; on a CPU
+tensor they run `conv3x3_masked_plain`, the masked-dense oracle of
+`ops/sparse.py`, which is also what the kernel is checked against on
+the card. The kernel reduces each block's flag granule of the mask
+itself; `stripe_flags` / `tile_flags_2d` compute the same flags in torch,
+as the JAX package does on the XLA side.
 
 `launches` counts kernel launches per wrapper; the CPU path never counts.
 """
@@ -121,10 +123,8 @@ def conv3x3_tile_sparse(x: Tensor, w: Tensor, b: Tensor, out_mask: Tensor,
     if _on_cpu(x):
         out = conv3x3_masked_plain(x, w, b, out_mask, pad_mode, nonlin)
     else:
-        n, h, wd = x.shape[:3]
-        out = _launch("conv3x3_tile_sparse", x, w, b, out_mask,
-                      stripe_flags(out_mask, th), pad_mode, nonlin,
-                      gth=th, gtw=wd, n_gh=-(-h // th), n_gw=1)
+        out = _launch("conv3x3_tile_sparse", x, w, b, out_mask, pad_mode,
+                      nonlin, gth=th, gtw=x.shape[2])
     return out[0] if squeeze else out
 
 
@@ -140,10 +140,8 @@ def conv3x3_tile_sparse_2d(x: Tensor, w: Tensor, b: Tensor, out_mask: Tensor,
     if _on_cpu(x):
         out = conv3x3_masked_plain(x, w, b, out_mask, pad_mode, nonlin)
     else:
-        h, wd = x.shape[1], x.shape[2]
-        out = _launch("conv3x3_tile_sparse_2d", x, w, b, out_mask,
-                      tile_flags_2d(out_mask, th, tw), pad_mode, nonlin,
-                      gth=th, gtw=tw, n_gh=-(-h // th), n_gw=-(-wd // tw))
+        out = _launch("conv3x3_tile_sparse_2d", x, w, b, out_mask, pad_mode,
+                      nonlin, gth=th, gtw=tw)
     return out[0] if squeeze else out
 
 
@@ -165,7 +163,7 @@ def _kernel_lib():
         from ..kernels import build
         lib = build.load("tile_sparse_conv")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tile_sparse_conv3x3_f32.argtypes = [p] * 6 + [i] * 12 + [p]
+        lib.tile_sparse_conv3x3_f32.argtypes = [p] * 5 + [i] * 10 + [p]
         lib.tile_sparse_conv3x3_f32.restype = i
         lib.tile_sparse_conv_error_string.argtypes = [i]
         lib.tile_sparse_conv_error_string.restype = ctypes.c_char_p
@@ -174,8 +172,9 @@ def _kernel_lib():
 
 
 def _launch(key: str, x: Tensor, w: Tensor, b: Tensor, out_mask: Tensor,
-            flags: Tensor, pad_mode: str, nonlin, gth: int, gtw: int,
-            n_gh: int, n_gw: int) -> Tensor:
+            pad_mode: str, nonlin, gth: int, gtw: int) -> Tensor:
+    """One kernel launch; each block lies in one (gth, gtw) flag granule
+    of out_mask and skips it when no pixel there is > 0."""
     n, h, wd, cin = x.shape
     cout = w.shape[-1]
     if nonlin not in _NONLIN_CODES:
@@ -200,11 +199,9 @@ def _launch(key: str, x: Tensor, w: Tensor, b: Tensor, out_mask: Tensor,
                          f"{(n, h, wd, 1)}")
     if pad_mode == "reflect" and min(h, wd) < 2:
         raise ValueError("reflect padding needs H, W >= 2")
-    if gth % _TILE_H or (n_gw > 1 and gtw % _TILE_W):
+    if gth % _TILE_H or (gtw < wd and gtw % _TILE_W):
         raise ValueError(f"flag granule ({gth}, {gtw}) must be a multiple "
                          f"of the kernel's ({_TILE_H}, {_TILE_W}) tile")
-    if n * -(-h // _TILE_H) > 65535:
-        raise ValueError("N * ceil(H / 8) exceeds the grid's 65535 rows")
     out = torch.empty((n, h, wd, cout), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
@@ -212,9 +209,8 @@ def _launch(key: str, x: Tensor, w: Tensor, b: Tensor, out_mask: Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.tile_sparse_conv3x3_f32(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out_mask.data_ptr(),
-        flags.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
-        _PAD_CODES[pad_mode], _NONLIN_CODES[nonlin], gth, gtw, n_gh, n_gw,
-        x.device.index, stream)
+        out.data_ptr(), n, h, wd, cin, cout, _PAD_CODES[pad_mode],
+        _NONLIN_CODES[nonlin], gth, gtw, x.device.index, stream)
     if err != 0:
         raise RuntimeError("tile_sparse_conv3x3 launch failed: "
                            + lib.tile_sparse_conv_error_string(err).decode())

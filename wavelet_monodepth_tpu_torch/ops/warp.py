@@ -33,6 +33,10 @@ Tensor = torch.Tensor
 launches = {"banded_warp_fwd": 0, "banded_warp_bwd": 0}
 
 _SMEM_LIMIT = 227 * 1024          # a Hopper block's shared memory
+_SM_SMEM = 228 * 1024             # an SM's, 1 KB of it reserved per block
+_SM_BLOCKS = 8                    # 256-thread blocks per SM
+_FWD_STAGE = 8 * 128              # floats per channel of the forward's
+                                  # per-warp output buffers
 
 
 def reset_launches() -> None:
@@ -132,7 +136,7 @@ def _kernel_lib():
         from ..kernels import build
         lib = build.load("banded_warp")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.banded_warp_fwd_f32.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.banded_warp_fwd_f32.argtypes = [p] * 4 + [i] * 6 + [p]
         lib.banded_warp_fwd_f32.restype = i
         lib.banded_warp_bwd_f32.argtypes = [p] * 7 + [i] * 5 + [p]
         lib.banded_warp_bwd_f32.restype = i
@@ -170,18 +174,47 @@ def _raise_on(err: int, what: str) -> None:
                            .decode())
 
 
-def _launch_fwd(src: Tensor, x: Tensor, yr: Tensor) -> Tensor:
+def band_rows(src: Tensor) -> int:
+    """Output rows per forward block: the fewest whose grid fits the card
+    in one wave of resident blocks (blocks per SM bounded by shared
+    memory), at most what fits one block (its rows and the two neighbours
+    they can sample); raises when not even one row fits."""
+    n, h, w, c = src.shape
+    stage = _FWD_STAGE * c if c <= 4 else 0
+
+    def smem(rows):                 # csrc/banded_warp.cu: fwd_smem_floats
+        return 4 * (-(-(rows + 2) * w * c // 4) * 4 + stage)
+
+    if smem(1) > _SMEM_LIMIT:
+        raise ValueError(f"W * C = {w * c} floats: a band of one row and "
+                         f"its two neighbours exceeds a block's shared "
+                         f"memory")
+    sms = torch.cuda.get_device_properties(src.device).multi_processor_count
+    rows = 1
+    while rows < h and smem(rows + 1) <= _SMEM_LIMIT:
+        per_sm = min(_SM_SMEM // (smem(rows) + 1024), _SM_BLOCKS)
+        if n * -(-h // rows) <= sms * per_sm:
+            break
+        rows += 1
+    return rows
+
+
+def _launch_fwd(src: Tensor, x: Tensor, yr: Tensor,
+                rows: int = None) -> Tensor:
+    """The forward kernel; rows: output rows per block (band_rows by
+    default)."""
     x, yr = x.contiguous(), yr.contiguous()
     _check(src, x, yr)
     n, h, w, c = src.shape
     out = torch.empty_like(src)
     if out.numel() == 0:
         return out
+    rows = band_rows(src) if rows is None else rows
     lib = _kernel_lib()
     stream = torch.cuda.current_stream(src.device).cuda_stream
     _raise_on(lib.banded_warp_fwd_f32(
         src.data_ptr(), x.data_ptr(), yr.data_ptr(), out.data_ptr(),
-        n, h, w, c, src.device.index, stream), "banded_warp_fwd")
+        n, h, w, c, rows, src.device.index, stream), "banded_warp_fwd")
     launches["banded_warp_fwd"] += 1
     return out
 

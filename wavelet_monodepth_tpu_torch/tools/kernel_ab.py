@@ -1,0 +1,165 @@
+"""A/B timing of the tile-sparse conv (K1, K4) and the banded-warp forward
+(K3) between source trees of this repo, on one CUDA card.
+
+Each tree runs in its own process, which imports that tree's
+`wavelet_monodepth_tpu_torch` and builds that tree's kernels; the trees
+run in the order given, so `A B B A` interleaves two of them. Inputs come
+from seeded generators and are the same for every tree. Per run it
+prints one JSON line:
+
+  conv  per decoder conv of one B=16 and one B=1 sparse forward at the
+        10% maskgen point (chip_smoke.PATH_CONVS, the heads' conv twice),
+        each wrapper's median ms (CUDA events, 3 interleaved windows of
+        20 calls), and the 12-launch sums per wrapper;
+  warp  the K3 forward per launch at (12, 192, 640, 3) on a stereo grid of
+        maskgen depth (50 calls queued behind a device-side sleep, median
+        of 3 windows), with the tree's own band choice and, where the
+        tree takes one, each of --warp-rows output rows per block; and
+        F.grid_sample on the same grid.
+
+The last line is a summary: per tree, the medians over its runs.
+
+Usage, from the repo root on a machine with a card (any git-ignored
+directory holds the other tree):
+  mkdir -p _archive/parent && git archive HEAD~1 | tar x -C _archive/parent
+  python3 wavelet_monodepth_tpu_torch/tools/kernel_ab.py \\
+      _archive/parent . . _archive/parent [--warp-rows 2 4 9]
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def worker(tree: str, warp_rows) -> dict:
+    """Times `tree`'s kernels in this process (call once per process)."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    sys.path.append(REPO)               # chip_smoke's helpers
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    import wavelet_monodepth_tpu_torch as pkg
+    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
+    from wavelet_monodepth_tpu_torch.ops import warp
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    if not os.path.abspath(pkg.__file__).startswith(tree + os.sep):
+        raise RuntimeError(f"imported {pkg.__file__}, not {tree}'s package")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    nl = {"elu": tsc.elu, "sigmoid": tsc.sigmoid}
+    keys = ("conv3x3_tile_sparse", "conv3x3_tile_sparse_2d")
+
+    g = torch.Generator().manual_seed(2)
+    convs, sums = [], {}
+    for batch in (16, 1):
+        _, _, _, _, stage = cs.edge_stage_masks(batch)
+        sums[batch] = {k: 0.0 for k in keys}
+        for h, w, cin, cout, epi, (i, mk), conv in cs.PATH_CONVS:
+            x = torch.randn(batch, h, w, cin, generator=g).to(dev)
+            wt = (torch.randn(3, 3, cin, cout, generator=g) * 0.05).to(dev)
+            b = torch.zeros(cout, device=dev)
+            m = stage[i][mk].to(dev)
+            with torch.inference_mode():
+                t = cs.time_variants({k: (lambda k=k: getattr(tsc, k)(
+                    x, wt, b, m, "reflect", nl[epi])) for k in keys},
+                    iters=20)
+            reps = 2 if "pos/neg" in conv else 1
+            for k in keys:
+                sums[batch][k] += reps * t[k]["ms_median"]
+            convs.append({"conv": conv, "shape": [batch, h, w, cin, cout],
+                          **{k: t[k]["ms_median"] for k in keys}})
+
+    n, h, w, c = cs.TRAIN_B, cs.H, cs.W, 3
+    g = torch.Generator().manual_seed(21)
+    img = torch.rand(n, h, w, c, generator=g).to(dev)
+    scene = torch.from_numpy(mg.synthetic_depth_scene(n, h, w, seed=3)).to(dev)
+    grid = cs.stereo_grid(0.58 * w * 0.1 / (1.0 + scene * 0.03 * w), 0.1)
+    xs, yr = warp.banded_coords(grid, h, w)
+    img_nchw = img.permute(0, 3, 1, 2)
+    variants = {"kernel": lambda: warp._launch_fwd(img, xs, yr),
+                "library_grid_sample": lambda: F.grid_sample(
+                    img_nchw, grid, padding_mode="border",
+                    align_corners=False)}
+    default_rows = None
+    if "rows" in inspect.signature(warp._launch_fwd).parameters:
+        default_rows = warp.band_rows(img)
+        for r in warp_rows:
+            variants[f"kernel_rows{r}"] = (
+                lambda r=r: warp._launch_fwd(img, xs, yr, r))
+    ref = warp.banded_warp_plain(img, xs, yr)
+    errs = {k: float((f() - ref).abs().max()) for k, f in variants.items()
+            if k.startswith("kernel")}
+    with torch.no_grad():
+        t = cs.time_variants(variants, iters=50, queue_ahead=True)
+    from wavelet_monodepth_tpu_torch.kernels import build
+    ptxas = {name: [ln.split("info    :")[-1].strip()
+                    for ln in info["ptxas"].splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, info in build.build_info.items()}
+    return {"tree": tree, "card": cs.card_line(), "ptxas": ptxas,
+            "conv": convs, "conv_sum_ms": sums[16],
+            "conv_sum_ms_b1": sums[1],
+            "warp": {"shape": [n, h, w, c], "default_rows": default_rows,
+                     "ms_median": {k: v["ms_median"] for k, v in t.items()},
+                     "ms_min": {k: v["ms_min"] for k, v in t.items()},
+                     "ms_max": {k: v["ms_max"] for k, v in t.items()},
+                     "max_abs_err_vs_plain": errs}}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="+", help="tree roots, in run order")
+    ap.add_argument("--warp-rows", type=int, nargs="*", default=[],
+                    help="K3 forward output rows per block to time besides "
+                         "the tree's default (trees that take a choice)")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.trees[0], args.warp_rows)), flush=True)
+        return 0
+    runs = []
+    for tree in args.trees:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker", tree,
+             "--warp-rows", *map(str, args.warp_rows)],
+            capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr)
+            raise SystemExit(f"kernel_ab: the run of {tree} failed")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    summary = {}
+    for tree in dict.fromkeys(r["tree"] for r in runs):
+        mine = [r for r in runs if r["tree"] == tree]
+        summary[tree] = {
+            "runs": len(mine),
+            **{f"{k}_sum_ms": statistics.median(r["conv_sum_ms"][k]
+                                                for r in mine)
+               for k in mine[0]["conv_sum_ms"]},
+            **{f"{k}_sum_ms_b1": statistics.median(r["conv_sum_ms_b1"][k]
+                                                   for r in mine)
+               for k in mine[0].get("conv_sum_ms_b1", {})},
+            "warp_fwd_ms": {k: statistics.median(r["warp"]["ms_median"][k]
+                                                 for r in mine)
+                            for k in mine[0]["warp"]["ms_median"]}}
+    print(json.dumps({"summary": summary, "card": runs[0]["card"]}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
