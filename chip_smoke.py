@@ -48,7 +48,8 @@ phases; any failure raises and exits non-zero:
      pallas2d / compact / sites / capacity (compact_cap 0.5, and 1.0 for
      compact and capacity) at B=16 and B=1; K5 and K6
      summed over one B=16 compact forward's launches; K2 per scale at
-     B=16; a torch.profiler trace of the compacted backends' B=16
+     B=16 and B=1, its bound at the 3xTF32 and the f32 CUDA-core rates;
+     a torch.profiler trace of the compacted backends' B=16
      forwards (device idle share, costliest kernels and ATen ops);
   7. warp kernel vs plain: the banded warp (K3) forward and its gradients
      for src, x and yr, with and without the source-row pass, on the
@@ -665,22 +666,27 @@ def fused_plain(x, skip, yl, mask, params, i, ht=8, tw=64):
                        2 * x.shape[1], 2 * x.shape[2])
 
 
+def fused_inputs(enc, dec, dev, batch):
+    """stage_inputs of `batch` maskgen scenes under their 10% masks."""
+    import torch
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    disp, raw, ratio, _, _ = edge_stage_masks(batch)
+    img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
+    raw = {i: m.to(dev) for i, m in raw.items()}
+    return stage_inputs(enc, dec, img, raw, ratio)
+
+
 def phase_fused_stage(dev, enc, dec, errs):
     """K2 driven on the decoder's stage inputs at scales 3, 2, 1, B=16 and
     B=1 (the 10% maskgen masks; counted), then checked against its plain
     version and the oracle's interior, also under all-zero and all-one
-    masks (not counted). Returns the counted launches and the B=16 stage
-    inputs."""
+    masks (not counted). Returns the counted launches and the stage
+    inputs {batch: {scale: (x, skip, yl, mask)}}."""
     import torch
     from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
-    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
     ring = {"yh": 2, "yl_new": 4, "x1": 2}
-    inputs, runs = {}, []
-    for batch in (16, 1):
-        disp, raw, ratio, _, _ = edge_stage_masks(batch)
-        img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
-        raw = {i: m.to(dev) for i, m in raw.items()}
-        inputs[batch] = stage_inputs(enc, dec, img, raw, ratio)
+    inputs = {batch: fused_inputs(enc, dec, dev, batch) for batch in (16, 1)}
+    runs = []
     torch.cuda.synchronize()
     fs.reset_launches()
     with torch.inference_mode():
@@ -717,7 +723,7 @@ def phase_fused_stage(dev, enc, dec, errs):
             if kind == "zeros":
                 require(not ours[0].any() and not ours[2].any(), row)
             emit(row)
-    return launches, inputs[16]
+    return launches, inputs
 
 
 # --- phase 6: times ----------------------------------------------------------
@@ -949,9 +955,12 @@ def phase_block_io_times(dev, enc, dec):
 
 
 def fused_bound_ms(x, skip, yl, mask, params, flags, ht=8, tw=64):
-    """(bound ms, bound by) of one fused_wave_stage call: the f32 FLOPs of
-    its active tiles' own pixels (no halo) at the CUDA-core peak, or its
-    inputs, parameters and outputs (yh, yl_new, x1) once at HBM rate."""
+    """(bound ms, bound by, the bound at the f32 CUDA-core rate) of one
+    fused_wave_stage call: the FLOPs of its active tiles' own pixels (no
+    halo) at the 3xTF32 tensor rate, or its inputs, parameters and
+    outputs (yh, yl_new, x1) once at HBM rate, whichever takes longer; the
+    third value puts the FLOPs at the CUDA cores' f32 peak instead (the
+    bound PRs 3-5 used)."""
     cx, cs, cd = x.shape[-1], skip.shape[-1], params[0].shape[-1]
     active = float(flags.sum())
     hl, wl = ht // 2, tw // 2
@@ -962,42 +971,52 @@ def fused_bound_ms(x, skip, yl, mask, params, flags, ht=8, tw=64):
     nbytes = 4.0 * (x.numel() + skip.numel() + yl.numel() + mask.numel()
                     + sum(p.numel() for p in params)
                     + n * hh * wh * (3 + 4 + cd))
-    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                 else "bytes")
+    t_ops, t_bytes = flops / TF32X3_FLOPS * 1e3, nbytes / HBM_BPS * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops > t_bytes
+            else "bytes", max(flops / F32_FLOPS * 1e3, t_bytes))
 
 
 def phase_fused_times(dec, inputs):
-    """K2 per scale at B=16 on the decoder's stage inputs (10% maskgen
-    masks): the bare kernel on the padded inputs, its plain version on the
-    same, the whole wrapper; sums over the three scales."""
+    """K2 per scale at B=16 and B=1 on the decoder's stage inputs (10%
+    maskgen masks): the bare kernel on the padded inputs, its plain
+    version on the same, the whole wrapper; the B=16 sums over the three
+    scales (the kernels line) and the B=1 sums."""
     import torch
     from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
-    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None}
+    sums = {b: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "bound_ms_f32_cuda_cores": 0.0} for b in inputs}
     by = {"operations": 0.0, "bytes": 0.0}
     with torch.inference_mode():
-        for i, (x, skip, yl, mask) in inputs.items():
-            params = dec.stage_params(i)
-            inp = fs._stage_inputs(x, skip, yl, mask, 8, 64)
-            t = time_variants({
-                "kernel": lambda: fs._launch(inp, params, i, 8, 64),
-                "plain": lambda: fs.fused_wave_stage_plain(inp, params, i,
-                                                           8, 64),
-                "wrapper": lambda: fs.fused_wave_stage(
-                    x, skip, yl, mask, *params, i_scale=i)}, iters=5)
-            bound, bound_by = fused_bound_ms(x, skip, yl, mask, params,
-                                             inp["flags"])
-            by[bound_by] += bound
-            sums["ms"] += t["kernel"]["ms_median"]
-            sums["plain_ms"] += t["plain"]["ms_median"]
-            sums["bound_ms"] += bound
-            emit({"phase": "time_fused", "scale": i, "batch": x.shape[0],
-                  "x": list(x.shape), "skip": list(skip.shape),
-                  "tiles": list(inp["flags"].shape),
-                  "active_tiles": int(inp["flags"].sum()),
-                  "bound_ms": bound, "bound_by": bound_by, **t, **_card})
-    sums["bound_by"] = max(by, key=by.get)
-    return sums
+        for batch, scales in inputs.items():
+            for i, (x, skip, yl, mask) in scales.items():
+                params = dec.stage_params(i)
+                inp = fs._stage_inputs(x, skip, yl, mask, 8, 64)
+                t = time_variants({
+                    "kernel": lambda: fs._launch(inp, params, i, 8, 64),
+                    "plain": lambda: fs.fused_wave_stage_plain(
+                        inp, params, i, 8, 64),
+                    "wrapper": lambda: fs.fused_wave_stage(
+                        x, skip, yl, mask, *params, i_scale=i)},
+                    iters=5 if batch == 16 else 20)
+                bound, bound_by, bound_f32 = fused_bound_ms(
+                    x, skip, yl, mask, params, inp["flags"])
+                if batch == 16:
+                    by[bound_by] += bound
+                for key, v in (("ms", t["kernel"]["ms_median"]),
+                               ("plain_ms", t["plain"]["ms_median"]),
+                               ("bound_ms", bound),
+                               ("bound_ms_f32_cuda_cores", bound_f32)):
+                    sums[batch][key] += v
+                emit({"phase": "time_fused", "scale": i, "batch": batch,
+                      "x": list(x.shape), "skip": list(skip.shape),
+                      "tiles": list(inp["flags"].shape),
+                      "active_tiles": int(inp["flags"].sum()),
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "bound_ms_f32_cuda_cores": bound_f32,
+                      "bound_share": bound / t["kernel"]["ms_median"],
+                      **t, **_card})
+    emit({"phase": "time_fused", "sums_by_batch": sums, **_card})
+    return {**sums[16], "bound_by": max(by, key=by.get), "library_ms": None}
 
 
 # --- phase 7: the banded warp (K3), kernel vs plain -------------------------
@@ -1736,14 +1755,14 @@ def main():
     launches, enc, dec = phase_slice(dev)
     phase_contracts(dev, enc, dec)
     phase_block_io_vs_plain(dev, enc, dec, errs)
-    fused_launches, fused_inputs = phase_fused_stage(dev, enc, dec, errs)
+    fused_launches, stage_ins = phase_fused_stage(dev, enc, dec, errs)
     kernel_ms = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "library_ms": 0.0, "bound_ms_f32_cuda_cores": 0.0}
                  for k in KERNELS}
     phase_times(dev, enc, dec, kernel_ms)
     block_io_ms = phase_block_io_times(dev, enc, dec)
-    fused_ms = phase_fused_times(dec, fused_inputs)
-    del fused_inputs
+    fused_ms = phase_fused_times(dec, stage_ins)
+    del stage_ins
     profile_forwards(enc, dec, dev)
     # ms / plain_ms / bound_ms / library_ms: the 12 launches of one B=16
     # sparse forward at the 10% operating point, summed medians

@@ -110,7 +110,12 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 16, 128, 16, 8, 16),
                                    (2, 12, 40, 256, 128, 128),
-                                   (2, 10, 36, 64, 64, 32)])
+                                   (2, 10, 36, 64, 64, 32),
+                                   (2, 24, 80, 128, 64, 64),    # scale 2
+                                   (2, 48, 160, 64, 64, 32),    # scale 1
+                                   (1, 8, 64, 16, 8, 12),   # a partial n8
+                                   (2, 12, 40, 20, 8, 16),  # partial chunk
+                                   (1, 10, 36, 10, 6, 8)])  # 4-byte copies
 def test_kernel_matches_plain_on_card(cuda_device, shape):
     n, hl, wl, cx, cs, cd = shape
     x, skip, yl, params = _setup(n, hl, wl, cx, cs, cd, seed=sum(shape))

@@ -260,11 +260,25 @@ def test_infer_main_files_match_jax(checkpoint, tmp_path):
 
 
 def test_colormap_close_to_matplotlib_magma():
+    """The port carries matplotlib's table and mapping: equal colours."""
     d = np.random.RandomState(6).rand(30, 40).astype(np.float32)
-    ours = tinfer.colormap_disp(d).astype(int)
-    ref = jinfer.colormap_disp(d).astype(int)
+    ours = tinfer.colormap_disp(d)
+    ref = jinfer.colormap_disp(d)
     assert ours.shape == ref.shape and ours.dtype == ref.dtype
-    assert np.abs(ours - ref).max() <= 3
+    np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_colormap_equals_matplotlib_at_ties(dtype):
+    """Ties at vmin and at the 95th-percentile vmax, values above vmax,
+    and a constant image."""
+    rng = np.random.RandomState(7)
+    d = (np.round(rng.rand(40, 50) * 8) / 8 * 3.7 + 0.3).astype(dtype)
+    d[:5] = d.min()
+    assert (d == np.percentile(d, 95)).any()
+    for img in (d, np.full((6, 7), 2.5, dtype)):
+        np.testing.assert_array_equal(tinfer.colormap_disp(img),
+                                      jinfer.colormap_disp(img))
 
 
 def test_infer_rejects_unported_inputs(checkpoint):

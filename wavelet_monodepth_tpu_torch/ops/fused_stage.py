@@ -204,6 +204,8 @@ def _kernel_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_wave_stage_f32.argtypes = [p] * 24 + [i] * 10 + [p]
         lib.fused_wave_stage_f32.restype = i
+        lib.fused_wave_stage_smem_bytes.argtypes = [i] * 3
+        lib.fused_wave_stage_smem_bytes.restype = i
         lib.fused_wave_stage_error_string.argtypes = [i]
         lib.fused_wave_stage_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -244,10 +246,11 @@ def _launch(inp: dict, params, i_scale: int, ht: int, tw: int):
                              f"{shape} (weights are HWIO)")
     if cd % 4:
         raise ValueError(f"the kernel takes Cd in multiples of 4, got {cd}")
-    smem = (ht // 2 + 2) * (tw // 2 + 2) * cd * 4
+    lib = _kernel_lib()
+    smem = lib.fused_wave_stage_smem_bytes(ht, tw, cd)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"the upconv0 tile, {smem} bytes, exceeds a "
-                         f"block's shared memory")
+        raise ValueError(f"the kernel's shared memory at tile ({ht}, {tw}) "
+                         f"and Cd={cd}, {smem} bytes, exceeds a block's")
     n_tiles = n * n_h * n_w
     if n_h * n_w > 2 ** 31 - 1 or n > 65535:
         raise ValueError("the grid is (tiles, N) with N <= 65535")
@@ -260,7 +263,6 @@ def _launch(inp: dict, params, i_scale: int, ht: int, tw: int):
                           dtype=torch.float32, device=dev)
     if n_tiles == 0:
         return yh, ph, x1
-    lib = _kernel_lib()
     t = tensors
     err = lib.fused_wave_stage_f32(
         *(t[k].data_ptr() for k in ("x", "skip", "yl", "m_u0", "m_up",

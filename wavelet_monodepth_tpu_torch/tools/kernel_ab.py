@@ -1,5 +1,6 @@
-"""A/B timing of the tile-sparse conv (K1, K4) and the banded-warp forward
-(K3) between source trees of this repo, on one CUDA card.
+"""A/B timing of the tile-sparse conv (K1, K4), the banded-warp forward
+(K3) and the fused wave stage (K2) between source trees of this repo, on
+one CUDA card.
 
 Each tree runs in its own process, which imports that tree's
 `wavelet_monodepth_tpu_torch` and builds that tree's kernels; the trees
@@ -15,8 +16,14 @@ prints one JSON line:
         maskgen depth (50 calls queued behind a device-side sleep, median
         of 3 windows), with the tree's own band choice and, where the
         tree takes one, each of --warp-rows output rows per block; and
-        F.grid_sample on the same grid.
+        F.grid_sample on the same grid;
+  fused K2's bare launch (`fused_stage._launch`, padding and flags done
+        beforehand) per scale 3/2/1 at B=16 and B=1 on chip_smoke's stage
+        inputs (a seeded random net's decoder under the 10% maskgen
+        masks), median of 3 windows of 5 (B=16) or 20 (B=1) calls, and
+        the B=16 sum.
 
+Every tree uses this tree's chip_smoke.py for its inputs and timer.
 The last line is a summary: per tree, the medians over its runs.
 
 Usage, from the repo root on a machine with a card (any git-ignored
@@ -29,6 +36,7 @@ directory holds the other tree):
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import inspect
 import json
 import os
@@ -44,12 +52,15 @@ def worker(tree: str, warp_rows) -> dict:
     """Times `tree`'s kernels in this process (call once per process)."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
-    sys.path.append(REPO)               # chip_smoke's helpers
     import torch
     import torch.nn.functional as F
 
-    import chip_smoke as cs
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)   # this tree's helpers
+    spec.loader.exec_module(cs)
     import wavelet_monodepth_tpu_torch as pkg
+    from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
     from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
     from wavelet_monodepth_tpu_torch.ops import warp
     from wavelet_monodepth_tpu_torch.utils import maskgen as mg
@@ -105,6 +116,21 @@ def worker(tree: str, warp_rows) -> dict:
             if k.startswith("kernel")}
     with torch.no_grad():
         t = cs.time_variants(variants, iters=50, queue_ahead=True)
+
+    enc, dec = cs.build_models(dev)
+    fused = {}
+    with torch.inference_mode():
+        for batch in (16, 1):
+            stage = cs.fused_inputs(enc, dec, dev, batch)
+            for i, (x, skip, yl, mask) in stage.items():
+                params = dec.stage_params(i)
+                inp = fs._stage_inputs(x, skip, yl, mask, 8, 64)
+                t_f = cs.time_variants(
+                    {"kernel": lambda: fs._launch(inp, params, i, 8, 64)},
+                    iters=5 if batch == 16 else 20)
+                fused[f"b{batch}_scale{i}"] = t_f["kernel"]["ms_median"]
+    fused["b16_sum"] = sum(fused[f"b16_scale{i}"] for i in cs.FUSED_SCALES)
+
     from wavelet_monodepth_tpu_torch.kernels import build
     ptxas = {name: [ln.split("info    :")[-1].strip()
                     for ln in info["ptxas"].splitlines()
@@ -117,7 +143,8 @@ def worker(tree: str, warp_rows) -> dict:
                      "ms_median": {k: v["ms_median"] for k, v in t.items()},
                      "ms_min": {k: v["ms_min"] for k, v in t.items()},
                      "ms_max": {k: v["ms_max"] for k, v in t.items()},
-                     "max_abs_err_vs_plain": errs}}
+                     "max_abs_err_vs_plain": errs},
+            "fused_ms": fused}
 
 
 def main(argv=None) -> int:
@@ -155,7 +182,9 @@ def main(argv=None) -> int:
                for k in mine[0].get("conv_sum_ms_b1", {})},
             "warp_fwd_ms": {k: statistics.median(r["warp"]["ms_median"][k]
                                                  for r in mine)
-                            for k in mine[0]["warp"]["ms_median"]}}
+                            for k in mine[0]["warp"]["ms_median"]},
+            "fused_ms": {k: statistics.median(r["fused_ms"][k] for r in mine)
+                         for k in mine[0]["fused_ms"]}}
     print(json.dumps({"summary": summary, "card": runs[0]["card"]}),
           flush=True)
     return 0
