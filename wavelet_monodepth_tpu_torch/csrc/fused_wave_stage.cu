@@ -26,7 +26,7 @@
 // of the dense TF32 rate (495 / 3 = 165 TFLOP/s against 67 of f32 FMAs);
 // the bytes take a fraction of that at 3.35 TB/s.
 // What the design does about it:
-//   * one block per (tile, image), 8 warps; every phase is an implicit
+//   * one block per (tile, image), 16 warps; every phase is an implicit
 //     GEMM on mma.sync.aligned.m16n8k8 TF32 over the tile's pixels:
 //       phase | M (pixels)           | N       | K            | A operand
 //       A     | (ht/2+2)(tw/2+2)=204 | Cd      | 9 Cx         | x window
@@ -45,21 +45,24 @@
 //     three products (one k8 step of an 8-channel chunk) start from zero
 //     and join the running f32 sum with one rounded add;
 //   * each warp owns up to MT m16 tiles (m tile i of the phase goes to
-//     warp i % 8) and all NT n8 tiles of an N slice of 8 * NT output
+//     warp i % 16) and all NT n8 tiles of an N slice of 8 * NT output
 //     channels; the output channels are walked in slices, so the
-//     accumulators fit the registers (6 x 4 x 4 floats in phase B), and
-//     the A operand is re-read from shared memory (x0) or re-staged from
-//     L2 (skip, x1, heads) for every slice;
+//     accumulators fit the registers (3 x 4 x 4 floats in phase B), and
+//     the A operand is re-staged (from x0 in shared memory, or from L2:
+//     skip, x1, heads) for every slice. Four warps per scheduler hide
+//     the MMAs' latency better than two (1.2x on the H100), though 512
+//     threads cap a thread at 128 registers and ptxas spills ~100 bytes;
 //   * the staged windows (8 channels per chunk, pixel stride 12 floats)
 //     and the chunk's weights for all taps (rows padded to 40 floats) are
 //     copied with cp.async into one of two buffers while the MMAs consume
 //     the other, so every fragment load of a warp hits 32 distinct
 //     banks; the weights are split into hi/lo as they are loaded;
 //   * x0 (the upconv0 output over the low-res halo tile) stays in shared
-//     memory, its pixel stride Cd + 4 (or + 8, so it is 4 mod 8); the
-//     upsample is an index (R >> 1, C >> 1) into it, and m_up a window in
-//     shared memory, so upconv1 reads its first Cd input channels without
-//     a copy and the concat never exists;
+//     memory, its pixel stride Cd + 4 (or + 8, so it is 4 mod 8); each
+//     8-channel chunk of upsample(x0) * m_up is copied from it into the
+//     stage buffer, pixel (R, C) from x0's (R >> 1, C >> 1) times m_up (a
+//     window in shared memory), so both parts of upconv1's K read one
+//     kind of window and the concat never exists;
 //   * x1 and the two heads' 1x1 outputs do not fit beside it (a
 //     10 x 66 x 128 x1 is 338 KB): each block keeps them in its own slice
 //     of a global scratch the wrapper allocates, written and read back by
@@ -85,7 +88,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int CK = 8;           // input channels per stage: one k8 step
 constexpr int CKP = CK + 4;     // staged pixel stride, 4 mod 8
@@ -252,16 +255,31 @@ __device__ __forceinline__ const float* weight_src(const Args& a,
 }
 
 // Stages input channels [c0, c0 + CK) of part `part` of the phase's
-// source window into xs[npix][CKP] (none for upconv1's x0 part, which is
-// in shared memory) and their weights for every tap and the N slice's
-// output channels into ws[taps][CK][WP], asynchronously (one commit
-// group per call).
+// source window into xs[npix][CKP] and their weights for every tap and
+// the N slice's output channels into ws[taps][CK][WP], asynchronously
+// (one commit group per call). Upconv1's first part, upsample(x0) * m_up,
+// is copied from shared memory as it is read: x0 pixel (R >> 1, C >> 1)
+// times m_up's (R, C).
 template <int PH, int NB>
 __device__ __forceinline__ void stage(const Args& a, const Tile& c,
-                                      const Shape& s, float* xs, float* ws,
-                                      int co0, int part, int c0) {
+                                      const Shape& s, const float* x0s,
+                                      const float* mups, float* xs,
+                                      float* ws, int co0, int part, int c0) {
   constexpr int WP = NB % 16 == 8 ? NB : NB + 8;
-  if (!(PH == PH_UP1 && part == 0)) {
+  if (PH == PH_UP1 && part == 0) {
+    for (int e = threadIdx.x; e < s.npix * (CK / 4); e += THREADS) {
+      const int q = e % (CK / 4), pix = e / (CK / 4);
+      const int R = pix / (c.tw + 4), C = pix - R * (c.tw + 4);
+      const float m = mups[pix];
+      float4 v = *reinterpret_cast<const float4*>(
+          x0s + ((R >> 1) * (c.wl + 2) + (C >> 1)) * c.x0p + c0 + 4 * q);
+      v.x *= m;
+      v.y *= m;
+      v.z *= m;
+      v.w *= m;
+      *reinterpret_cast<float4*>(xs + pix * CKP + 4 * q) = v;
+    }
+  } else {
     const int cin = PH == PH_UP0 ? c.cx
                   : PH == PH_UP1 ? c.cs
                   : PH == PH_HEAD1 ? c.cd : 2 * c.cd;
@@ -320,9 +338,9 @@ __device__ __forceinline__ void run_phase(const Args& a, const Tile& c,
   const int src_floats = c.stage_floats - WTS;
 
   float acc[MT][NT][4];
-  int pr[MT][2], pc[MT][2];  // output row / column of fragment rows g, g+8
+  int off[MT][2];  // window offset of fragment rows g, g + 8 at tap (0, 0)
 
-  stage<PH, NB>(a, c, s, stg, stg + src_floats, 0, 0, 0);
+  stage<PH, NB>(a, c, s, x0s, mups, stg, stg + src_floats, 0, 0, 0);
   for (int kc = 0; kc < total; ++kc) {
     const int kk = kc % per, mg = (kc / per) % n_mg;
     const int sl = kc / (per * n_mg);
@@ -337,8 +355,8 @@ __device__ __forceinline__ void run_phase(const Args& a, const Tile& c,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int p = min(mt * 16 + g + 8 * h, s.M - 1);
-          pr[i][h] = p / s.OW;
-          pc[i][h] = p - pr[i][h] * s.OW;
+          const int r = p / s.OW;
+          off[i][h] = (r * s.SW + p - r * s.OW) * CKP + t;
         }
       }
     }
@@ -347,18 +365,17 @@ __device__ __forceinline__ void run_phase(const Args& a, const Tile& c,
     if (kc + 1 < total) {  // lands while chunk kc is multiplied
       const int nk = (kc + 1) % per;
       float* nx = stg + ((kc + 1) & 1) * c.stage_floats;
-      stage<PH, NB>(a, c, s, nx, nx + src_floats,
+      stage<PH, NB>(a, c, s, x0s, mups, nx, nx + src_floats,
                     (kc + 1) / (per * n_mg) * NB, nk >= nk0,
                     (nk >= nk0 ? nk - nk0 : nk) * CK);
     }
     const float* xs = stg + (kc & 1) * c.stage_floats;
     const float* ws = xs + src_floats;
-    const bool from_x0 = PH == PH_UP1 && kk < nk0;
-    const int c0 = (kk < nk0 ? kk : kk - nk0) * CK;
 
 #pragma unroll 1
     for (int tap = 0; tap < s.taps; ++tap) {
       const int ky = tap / 3, kx = tap - 3 * ky;
+      const float* xt = xs + (ky * s.SW + kx) * CKP;
       uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -369,22 +386,8 @@ __device__ __forceinline__ void run_phase(const Args& a, const Tile& c,
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         if ((mg * MT + i) * WARPS + warp >= n_mt) continue;
-        float v[4];  // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int R = pr[i][h] + ky, C = pc[i][h] + kx;
-          if (from_x0) {  // upsample(x0) * m_up
-            const float m = mups[R * (c.tw + 4) + C];
-            const float* q =
-                x0s + ((R >> 1) * (c.wl + 2) + (C >> 1)) * c.x0p + c0 + t;
-            v[h] = q[0] * m;
-            v[2 + h] = q[4] * m;
-          } else {
-            const float* q = xs + (R * s.SW + C) * CKP + t;
-            v[h] = q[0];
-            v[2 + h] = q[4];
-          }
-        }
+        const float v[4] = {xt[off[i][0]], xt[off[i][1]], xt[off[i][0] + 4],
+                            xt[off[i][1] + 4]};  // (g|g+8, t|t+4)
         uint32_t ah[4], al[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) split_tf32(v[k], ah[k], al[k]);
@@ -412,7 +415,7 @@ __device__ __forceinline__ void run_phase(const Args& a, const Tile& c,
       for (int h = 0; h < 2; ++h) {
         const int p = mt * 16 + g + 8 * h;
         if (p >= s.M) continue;
-        const int r = pr[i][h], col = pc[i][h];
+        const int r = p / s.OW, col = p - r * s.OW;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const int co = sl * NB + j * 8 + 2 * t;  // and co + 1: ncol even
@@ -513,13 +516,13 @@ fused_wave_stage_kernel(Args a) {
     }
   }
 
-  run_phase<PH_UP0, 4, 2>(a, c, x0s, mups, stg);    // x0 -> shared
+  run_phase<PH_UP0, 4, 1>(a, c, x0s, mups, stg);    // x0 -> shared
   __syncthreads();
-  run_phase<PH_UP1, 4, 6>(a, c, x0s, mups, stg);    // x1 -> scratch, out
+  run_phase<PH_UP1, 4, 3>(a, c, x0s, mups, stg);    // x1 -> scratch, out
   __syncthreads();
-  run_phase<PH_HEAD1, 4, 6>(a, c, x0s, mups, stg);  // hp, hn -> scratch
+  run_phase<PH_HEAD1, 4, 3>(a, c, x0s, mups, stg);  // hp, hn -> scratch
   __syncthreads();
-  run_phase<PH_HEAD3, 1, 4>(a, c, x0s, mups, stg);  // 3x3 sums -> shared
+  run_phase<PH_HEAD3, 1, 2>(a, c, x0s, mups, stg);  // 3x3 sums -> shared
   __syncthreads();
 
   // ---- sigmoid, yh, the IDWT phases ------------------------------------

@@ -20,9 +20,11 @@ The inputs are padded here in torch, each as JAX pads it: x and skip
 reflect-padded by 2 after their input masks, the mask planes zero-padded
 to their halos; the tile flags are reduced from the upconv1 plane. On a
 CUDA tensor the stage then launches the hand-written Hopper kernel
-`csrc/fused_wave_stage.cu` (one block per tile) or raises; on a CPU
-tensor it runs `fused_wave_stage_plain`, the same per-tile computation
-in torch, which is also what the kernel is checked against on the card.
+`csrc/fused_wave_stage.cu` (one block per tile, its four convs as
+3xTF32 tensor-core implicit GEMMs, within 1e-4 of float32) or raises;
+on a CPU tensor it runs `fused_wave_stage_plain`, the same per-tile
+computation in torch, which is also what the kernel is checked against
+on the card.
 Both write untiled (N, nH*ht, nW*tw, .) canvases; the phase interleave
 into yl_new stays in torch, as it is outside the kernel in JAX.
 
