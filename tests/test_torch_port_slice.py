@@ -70,6 +70,7 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.ops.capacity",
     "wavelet_monodepth_tpu_torch.ops.fused_stage",
     "wavelet_monodepth_tpu_torch.tools.kernel_ab",
+    "wavelet_monodepth_tpu_torch.tools.k2_phases",
 ]
 
 
@@ -120,6 +121,33 @@ def test_kernel_ab_refuses_without_a_card():
     assert proc.returncode != 0
     assert "needs a CUDA card" in proc.stderr
     assert "summary" not in proc.stdout
+
+
+def test_k2_phases_instruments_every_phase():
+    """The phase timer's copy of K2 reads the clock before phase A and
+    after each of the four phases' barriers, and exports the readings."""
+    from wavelet_monodepth_tpu_torch.tools import k2_phases
+    src = open(os.path.join(REPO, "wavelet_monodepth_tpu_torch", "csrc",
+                            "fused_wave_stage.cu")).read()
+    out = k2_phases.instrument(src)
+    assert [out.count(f"clk[{k}] = clock64();") for k in range(5)] == [1] * 5
+    assert "int k2_clocks(long long* host)" in out
+    assert out.replace("\n", "").count("run_phase<") == src.count(
+        "run_phase<")
+    with pytest.raises(RuntimeError, match="phase calls"):
+        k2_phases.instrument(src.replace("  run_phase<", "  phase<"))
+
+
+def test_k2_phases_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    script = os.path.join(REPO, "wavelet_monodepth_tpu_torch", "tools",
+                          "k2_phases.py")
+    proc = subprocess.run([sys.executable, script], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "needs a CUDA card" in proc.stderr
 
 
 def test_maskgen_matches_jax():
