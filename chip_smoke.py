@@ -959,8 +959,7 @@ def fused_bound_ms(x, skip, yl, mask, params, flags, ht=8, tw=64):
     fused_wave_stage call: the FLOPs of its active tiles' own pixels (no
     halo) at the 3xTF32 tensor rate, or its inputs, parameters and
     outputs (yh, yl_new, x1) once at HBM rate, whichever takes longer; the
-    third value puts the FLOPs at the CUDA cores' f32 peak instead (the
-    bound PRs 3-5 used)."""
+    third value puts the FLOPs at the CUDA cores' f32 peak instead."""
     cx, cs, cd = x.shape[-1], skip.shape[-1], params[0].shape[-1]
     active = float(flags.sum())
     hl, wl = ht // 2, tw // 2

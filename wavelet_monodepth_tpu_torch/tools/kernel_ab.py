@@ -23,7 +23,8 @@ prints one JSON line:
         masks), median of 3 windows of 5 (B=16) or 20 (B=1) calls, and
         the B=16 sum.
 
-Every tree uses this tree's chip_smoke.py for its inputs and timer.
+Every tree takes its inputs and timer from the chip_smoke.py of the
+tree this script runs from, so another tree needs only its package.
 The last line is a summary: per tree, the medians over its runs.
 
 Usage, from the repo root on a machine with a card (any git-ignored
@@ -57,7 +58,7 @@ def worker(tree: str, warp_rows) -> dict:
 
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)   # this tree's helpers
+    cs = importlib.util.module_from_spec(spec)   # the running tree's
     spec.loader.exec_module(cs)
     import wavelet_monodepth_tpu_torch as pkg
     from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
