@@ -32,9 +32,18 @@ phases; any failure raises and exits non-zero:
      compact_cap 1.0 overflow nowhere, keep xla's op counts and equal xla
      within 1e-4 (sites, capacity: whole tensors; compact: away from its
      image-border ring, COMPACT_RING); at 0.5 their overflow is printed;
-  5b. block IO vs plain: the 18 gathers and 6 scatters of a compact
-     forward at B=16 and B=1, every tile of a stack (window_h == th, the
-     last row block) and odd C=1 / C=3 row widths; bitwise equal;
+  5a. bf16 serving: servers from tools/infer.load_model(--bfloat16) on
+     xla, compact, sites and capacity (compact_cap 1.0) answer B=16 and
+     B=1 requests at the 10% maskgen point (the bf16 path: K5/K6's bf16
+     instances, 18 + 6 launches per request on compact, counted from 0):
+     disp within max 0.05 / mean 0.01 of the float32 server's of the
+     same backend, op counts equal to xla bf16's, no overflow, within the
+     same bounds of xla bf16 (compact: away from its ring); pallas and
+     pallas2d raise in bf16 (JAX cannot lower them);
+  5b. block IO vs plain, float32 and bf16: the 18 gathers and 6 scatters
+     of a compact forward at B=16 and B=1, every tile of a stack
+     (window_h == th, the last row block) and odd C=1 / C=3 row widths;
+     bitwise equal;
   5c. fused wave stage (K2) vs plain (<= 1e-4) and vs the masked-dense
      oracle's interior (2 px for yh and x1, 4 px for yl_new; <= 1e-4) on
      the decoder's stage inputs at scales 3, 2, 1, B=16 and B=1, under
@@ -47,10 +56,15 @@ phases; any failure raises and exits non-zero:
      whole forward dense vs sparse xla / pallas /
      pallas2d / compact / sites / capacity (compact_cap 0.5, and 1.0 for
      compact and capacity) at B=16 and B=1; K5 and K6
-     summed over one B=16 compact forward's launches; K2 per scale at
-     B=16 and B=1, its bound at the 3xTF32 and the f32 CUDA-core rates;
-     a torch.profiler trace of the compacted backends' B=16
-     forwards (device idle share, costliest kernels and ATen ops);
+     summed over one B=16 compact forward's launches, float32 and bf16;
+     K2 per scale at B=16 and B=1, its bound at the 3xTF32 and the f32
+     CUDA-core rates; a torch.profiler trace of the compacted backends'
+     B=16 forwards and of dense and sparse xla in float32 and bf16
+     (device idle share, costliest kernels and ATen ops);
+  6b. the bench twin: tools/bench.py's cells (bench.py's keys: dense and
+     sparse x float32 and bf16 at B=16, the threshold cell, B=1 bf16,
+     density, FLOPs; extra rows for the kernel and compacted backends),
+     re-emitted as {"phase": "bench", ...};
   7. warp kernel vs plain: the banded warp (K3) forward and its gradients
      for src, x and yr, with and without the source-row pass, on the
      path's (12, 192, 640, 3) stereo grids (a random net's depth and
@@ -63,19 +77,22 @@ phases; any failure raises and exits non-zero:
      --stereo_warp_kernel on: 3 steps, one validation batch, 5 forward
      and 4 backward K3 launches per step (5 more forward for the
      validation batch), finite losses, the checkpoint folder, which
-     tools/infer then serves;
+     tools/infer then serves; then the same with --bfloat16 (mixed
+     precision), whose checkpoint holds only float32 tensors;
   9. training contracts: "on" vs "off" on one batch and one set of
      weights: without hints and automasking (no argmin) losses within
      1e-5 and every gradient within 1e-3 of its norm; with them (the
      flagship, whose argmins flip where the two warps differ by ~1e-5)
      <= 0.5% of the mask pixels flipped and losses within 1e-4
      relative; one step launches K3 exactly 5 + 4 times; and the hint
-     loss of a 640x192 B=4 batch falls by >= 15% in 30 steps;
- 10. training times: ms per train step at B=12, "on" vs "auto", data on
-     the card; a torch.profiler trace of each (device idle share) and
-     one of an "on" step with input shapes (device time by ATen op);
-     its costliest op, a decoder conv, alone (B=12 and B=16, cuDNN's
-     heuristic vs benchmark); K3
+     loss of a 640x192 B=4 batch falls by >= 15% in 30 steps, in float32
+     and in bf16 mixed precision (parameters, BN buffers and Adam moments
+     float32 after the steps);
+ 10. training times: ms per train step at B=12, "on" vs "auto" vs "on"
+     in bf16 mixed precision, data on the card; a torch.profiler trace
+     of each (device idle share) and one of an "on" step with input
+     shapes (device time by ATen op); its costliest op, a decoder conv,
+     alone (B=12 and B=16, cuDNN's heuristic vs benchmark); K3
      forward (alone and after its torch coordinate chain) and backward
      per launch against the plain version, F.grid_sample and their
      bound.
@@ -512,6 +529,121 @@ def interior(t, r: int):
     return t[:, r:t.shape[1] - r, r:t.shape[2] - r]
 
 
+# --- phase 5a: bf16 serving --------------------------------------------------
+
+# tests/test_bf16.py's bounds for bf16 disparity against float32
+BF16_DISP_MAX, BF16_DISP_MEAN = 0.05, 0.01
+BF16_SERVED = ("xla",) + COMPACTED
+
+
+def bf16_copies(enc, dec):
+    """The full bf16 cast of tools/infer.py --bfloat16, on copies."""
+    import copy
+    import torch
+    from wavelet_monodepth_tpu_torch.utils.precision import cast_floats
+    return (cast_floats(copy.deepcopy(enc), torch.bfloat16),
+            cast_floats(copy.deepcopy(dec), torch.bfloat16))
+
+
+def disp_gap(ours, ref, ring=None) -> dict:
+    """max and mean |disp| difference per scale (away from ring[s] px)."""
+    out = {}
+    for s in range(4):
+        d = (ours[("disp", s)].float() - ref[("disp", s)].float()).abs()
+        d = interior(d, ring[s]) if ring else d
+        out[s] = {"max": float(d.max()), "mean": float(d.mean())}
+    return out
+
+
+def phase_bf16_serving(dev, enc, dec):
+    """bf16 servers from tools/infer.load_model(--bfloat16) on xla and the
+    compacted backends (compact_cap 1.0) answer B=16 and B=1 requests at
+    the 10% maskgen operating point: every count starts at 0 just before
+    and is read just after. Disparity within BF16_DISP_MAX / _MEAN of the
+    float32 server of the same backend on the same weights; op counts
+    equal to xla bf16's and no overflow; each compacted backend within
+    the same bounds of xla bf16 (compact away from its ring); the
+    tile-conv backends raise in bf16, as JAX cannot lower them. Returns
+    the bf16 launches."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
+    from wavelet_monodepth_tpu_torch.tools import infer
+    from wavelet_monodepth_tpu_torch.tools import torch_import as ti
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp:
+        ckpt = os.path.join(tmp, "weights")
+        ti.save_reference_checkpoint(ckpt, enc, dec, H, W)
+        base = ["--image_path", tmp, "--torch_model_path", ckpt]
+        args32 = infer.parse_args(base)
+        args16 = infer.parse_args(base + ["--bfloat16"])
+        f32 = {b: infer.load_model(args32, dev, b, compact_cap=1.0)[0]
+               for b in BF16_SERVED}
+        servers = {b: infer.load_model(args16, dev, b, compact_cap=1.0)[0]
+                   for b in BF16_SERVED}
+        for b in ("pallas", "pallas2d"):
+            try:
+                infer.load_model(args16, dev, b)
+            except NotImplementedError as e:
+                emit({"phase": "bf16_serving", "backend": b,
+                      "raises": str(e)})
+            else:
+                require(False, (b, "served bf16"))
+
+    requests = []
+    for batch in (16, 1):
+        disp, raw, ratio, dens, _ = edge_stage_masks(batch)
+        img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
+        requests.append((batch, img, {i: m.to(dev) for i, m in raw.items()},
+                         ratio, dens))
+    # the bf16 serving path: counts from 0, read right after
+    torch.cuda.synchronize()
+    tsc.reset_launches()
+    bio.reset_launches()
+    answers = [{b: servers[b](img, ratio, mask_override=mo)
+                for b in BF16_SERVED} for _, img, mo, ratio, _ in requests]
+    torch.cuda.synchronize()
+    launches = {k + "_bf16": v for k, v in bio.launches_bf16.items()}
+    require(launches == {"band_gather_bf16": 18 * len(requests),
+                         "block_scatter_bf16": 6 * len(requests)}, launches)
+    require(bio.launches == {"band_gather": 18 * len(requests),
+                             "block_scatter": 6 * len(requests)}
+            and not any(tsc.launches.values()),
+            ("other launches in bf16", bio.launches, tsc.launches))
+
+    for (batch, img, mo, ratio, dens), per in zip(requests, answers):
+        for b, out in per.items():
+            ref32 = f32[b](img, ratio, mask_override=mo)
+            require(all(v.dtype != torch.bfloat16 for v in out.values()),
+                    (b, "outputs come back float32"))
+            require(all(bool(torch.isfinite(out[("disp", s)]).all())
+                        for s in range(4)), (b, "finite disparity"))
+            vs32 = disp_gap(out, ref32)
+            overflow = {s: int(out[("overflow", s)]) for s in range(3)
+                        if ("overflow", s) in out}
+            ops_equal = all(torch.equal(out[k], per["xla"][k])
+                            for k in per["xla"] if k[0] == "total_ops")
+            row = {"phase": "bf16_serving", "backend": b, "batch": batch,
+                   "compact_cap": 1.0, "maskgen_density": dens,
+                   "disp_vs_f32": vs32, "total_ops_equal_xla_bf16":
+                   ops_equal, "overflow": overflow}
+            require(ops_equal and not any(overflow.values()), row)
+            require(all(v["max"] <= BF16_DISP_MAX
+                        and v["mean"] <= BF16_DISP_MEAN
+                        for v in vs32.values()), row)
+            if b != "xla":
+                ring = COMPACT_RING if b == "compact" else None
+                row["disp_vs_xla_bf16"] = gap = disp_gap(out, per["xla"],
+                                                         ring)
+                row["border_ring_px"] = ring
+                require(all(v["max"] <= BF16_DISP_MAX
+                            and v["mean"] <= BF16_DISP_MEAN
+                            for v in gap.values()), row)
+            emit(row)
+    return launches
+
+
 # --- phase 5b: the block IO kernels (K5, K6) vs plain -----------------------
 
 def record_block_io(run):
@@ -548,15 +680,18 @@ def compact_forward(enc, dec, img, raw, ratio, cap=0.5):
     return run
 
 
-def phase_block_io_vs_plain(dev, enc, dec, errs):
+def phase_block_io_vs_plain(dev, enc, dec, errs, dtype):
     """Every gather and scatter of a compact forward at B=16 and B=1 (the
     kernel's own output, recorded on the path, against the plain version
-    on the same inputs), then every tile of stacks with odd row widths."""
+    on the same inputs), then every tile of stacks with odd row widths;
+    in `dtype` (enc and dec cast to it), whose errors go to errs[name] for
+    float32 and errs[name + "_bf16"] for bfloat16."""
     import torch
     from wavelet_monodepth_tpu_torch.ops import blockio as bio
     from wavelet_monodepth_tpu_torch.utils import maskgen as mg
     plain = {"band_gather": bio.band_gather_plain,
              "block_scatter": bio.block_scatter_plain}
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
 
     def check(case, name, args, out):
         ref = plain[name](*args)
@@ -564,13 +699,13 @@ def phase_block_io_vs_plain(dev, enc, dec, errs):
         same = out.shape == ref.shape and torch.equal(out, ref)
         err = float((out - ref).abs().max()) if out.shape == ref.shape \
             else float("inf")
-        errs[name] = max(errs[name], err)
-        require(same and out.dtype == torch.float32, (name, case, err))
+        errs[name + suffix] = max(errs[name + suffix], err)
+        require(same and out.dtype == dtype, (name, case, str(dtype), err))
         return err
 
     for batch in (16, 1):
         disp, raw, ratio, _, _ = edge_stage_masks(batch)
-        img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
+        img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev, dtype)
         raw = {i: m.to(dev) for i, m in raw.items()}
         calls = record_block_io(compact_forward(enc, dec, img, raw, ratio))
         names = [c[0] for c in calls]
@@ -579,9 +714,9 @@ def phase_block_io_vs_plain(dev, enc, dec, errs):
         for k, (name, args, out) in enumerate(calls):
             err = check({"batch": batch, "call": k}, name, args, out)
             emit({"phase": "block_io_vs_plain", "kernel": name,
-                  "batch": batch, "call": k, "in": list(args[0].shape),
-                  "out": list(out.shape), "equal": True,
-                  "max_abs_err": err})
+                  "dtype": str(dtype), "batch": batch, "call": k,
+                  "in": list(args[0].shape), "out": list(out.shape),
+                  "equal": True, "max_abs_err": err})
         del calls
 
     # every tile, the last row block included, at windows th, th + 2*halo
@@ -590,7 +725,7 @@ def phase_block_io_vs_plain(dev, enc, dec, errs):
     for c, tw, halo in ((64, 16, 2), (1, 16, 1), (1, 17, 1), (3, 7, 0),
                         (1, 9, 2)):
         n, h, w, th = 2, 21, 70, 8
-        x = torch.randn(n, h, w, c, generator=g).to(dev)
+        x = torch.randn(n, h, w, c, generator=g).to(dev, dtype)
         stack = bio.wtile_stack(x, th, tw, halo)
         nh, nw = -(-h // th), -(-w // tw)
         idx = torch.stack(torch.meshgrid(
@@ -602,12 +737,14 @@ def phase_block_io_vs_plain(dev, enc, dec, errs):
             out = bio.band_gather(stack, idx, th, window_h)
             check({"c": c, "tw": tw, "window_h": window_h}, "band_gather",
                   (stack, idx, th, window_h), out)
-        vals = torch.randn(len(idx) - 1, th, tw, c, generator=g).to(dev)
+        vals = torch.randn(len(idx) - 1, th, tw, c, generator=g).to(
+            dev, dtype)
         out = bio.block_scatter(vals, idx[1:], n, nh, nw)
         check({"c": c, "tw": tw}, "block_scatter", (vals, idx[1:], n, nh, nw),
               out)
         emit({"phase": "block_io_vs_plain", "case": "every tile",
-              "c": c, "tw": tw, "halo": halo, "equal": True})
+              "dtype": str(dtype), "c": c, "tw": tw, "halo": halo,
+              "equal": True})
 
 
 # --- phase 5c: the fused wave stage (K2) vs plain and the oracle ------------
@@ -906,16 +1043,18 @@ def library_scatter(vals, idx, n: int, nh: int, nw: int):
     return f
 
 
-def phase_block_io_times(dev, enc, dec):
+def phase_block_io_times(dev, enc, dec, dtype):
     """K5 and K6 per launch at the 18 + 6 calls of one B=16 compact
-    forward (10% maskgen masks, compact_cap 0.5): the kernel (with its
-    output's allocation, the canvas zeroing for K6), the plain version
-    and the library call, each call's bytes bound; sums per forward."""
+    forward (10% maskgen masks, compact_cap 0.5) in `dtype` (enc and dec
+    cast to it): the kernel (with its output's allocation, the canvas
+    zeroing for K6), the plain version and the library call, each call's
+    bytes bound; sums per forward."""
     import torch
     from wavelet_monodepth_tpu_torch.ops import blockio as bio
     from wavelet_monodepth_tpu_torch.utils import maskgen as mg
     disp, raw, ratio, _, _ = edge_stage_masks(16)
-    img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
+    img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev, dtype)
+    size = torch.empty((), dtype=dtype).element_size()
     raw = {i: m.to(dev) for i, m in raw.items()}
     calls = record_block_io(compact_forward(enc, dec, img, raw, ratio))
     sums = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -931,7 +1070,7 @@ def phase_block_io_times(dev, enc, dec):
                     "plain": lambda: bio.band_gather_plain(*args),
                     "library": library_gather(*args)}
                 # the windows read once and written once
-                nbytes = 4.0 * (2 * out.numel() + idx.numel())
+                nbytes = size * 2.0 * out.numel() + 4.0 * idx.numel()
             else:
                 vals, idx = args[:2]
                 variants = {
@@ -939,7 +1078,8 @@ def phase_block_io_times(dev, enc, dec):
                     "plain": lambda: bio.block_scatter_plain(*args),
                     "library": library_scatter(*args)}
                 # the tiles read once, the whole canvas written once
-                nbytes = 4.0 * (vals.numel() + out.numel() + idx.numel())
+                nbytes = (size * (vals.numel() + out.numel())
+                          + 4.0 * idx.numel())
             require(torch.equal(variants["library"](), out), (name, k))
             t = time_variants(variants, iters=20, queue_ahead=True)
             bound = nbytes / HBM_BPS * 1e3
@@ -948,9 +1088,10 @@ def phase_block_io_times(dev, enc, dec):
                 sums[name][key] += t[v]["ms_median"]
             sums[name]["bound_ms"] += bound
             emit({"phase": "time_block_io", "kernel": name, "call": k,
-                  "batch": 16, "out": list(out.shape), "bytes": nbytes,
-                  "bound_ms": bound, **t, **_card})
-    emit({"phase": "time_block_io", "per_forward_sums": sums, **_card})
+                  "dtype": str(dtype), "batch": 16, "out": list(out.shape),
+                  "bytes": nbytes, "bound_ms": bound, **t, **_card})
+    emit({"phase": "time_block_io", "dtype": str(dtype),
+          "per_forward_sums": sums, **_card})
     return sums
 
 
@@ -1016,6 +1157,32 @@ def phase_fused_times(dec, inputs):
                       **t, **_card})
     emit({"phase": "time_fused", "sums_by_batch": sums, **_card})
     return {**sums[16], "bound_by": max(by, key=by.get), "library_ms": None}
+
+
+# --- phase 6b: the bench twin ----------------------------------------------
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+
+
+def phase_bench(dev) -> None:
+    """tools/bench.py's cells on the card (its one JSON line, re-emitted
+    as {"phase": "bench", ...}): a cell whose windows spread past 10%
+    after two re-measurements reports null, which is printed, not
+    failed."""
+    import contextlib
+    import io
+    from wavelet_monodepth_tpu_torch.tools import bench
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = bench.main([], device=dev)
+    lines = buf.getvalue().strip().splitlines()
+    require(len(lines) == 1 and json.loads(lines[0])
+            == json.loads(json.dumps(result)), ("bench output", lines))
+    require(set(result) == BENCH_KEYS
+            and abs(result["extra"]["density"] - 0.10) < 0.01,
+            ("bench result", result))
+    emit({"phase": "bench", "seconds": time.perf_counter() - t0, **result})
 
 
 # --- phase 7: the banded warp (K3), kernel vs plain -------------------------
@@ -1202,10 +1369,12 @@ def train_argv(root: str, log: str, kern: str = "on", batch=TRAIN_B,
                 ["--use_depth_hints"] if hints else ["--disable_automasking"])
 
 
-def phase_train_slice(dev, root: str, log: str):
+def phase_train_slice(dev, root: str, log: str, bf16: bool = False):
     """tools/train_kitti.main for one epoch (3 steps at B=12, one
     validation batch on the first log step), then tools/infer serves the
-    checkpoint it wrote. Every K3 count starts at 0 just before main."""
+    checkpoint it wrote. Every K3 count starts at 0 just before main.
+    bf16: with --bfloat16 (mixed precision), whose checkpoint must hold
+    float32 parameters, BN statistics and Adam moments."""
     import numpy as np
     import torch
     from wavelet_monodepth_tpu_torch.ops import warp
@@ -1214,7 +1383,8 @@ def phase_train_slice(dev, root: str, log: str):
     torch.cuda.synchronize()
     warp.reset_launches()
     t0 = time.perf_counter()
-    summary = train_kitti.main(train_argv(root, log), device=dev)
+    summary = train_kitti.main(train_argv(root, log)
+                               + (["--bfloat16"] if bf16 else []), device=dev)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(warp.launches)
@@ -1231,8 +1401,28 @@ def phase_train_slice(dev, root: str, log: str):
     need = [os.path.join(folder, f) for f in ("encoder.pth", "depth.pth",
                                               "adam.pth")]
     require(all(os.path.isfile(f) for f in need), need)
+    dtypes = set()
+    for f in need:
+        sd = torch.load(f, map_location="cpu", weights_only=True)
+        flat = sd["state"].values() if "state" in sd else [sd]
+        dtypes |= {str(v.dtype) for d in flat for v in d.values()
+                   if torch.is_tensor(v) and v.is_floating_point()}
+    require(dtypes == {"torch.float32"}, ("checkpoint dtypes", dtypes))
+    grid_cols_off = None
+    if bf16:
+        # JAX's fault, reproduced: the backprojection grid in depth's dtype
+        from wavelet_monodepth_tpu_torch.ops.geometry import \
+            backproject_depth
+        pts = backproject_depth(torch.ones(1, 1, W, 1, device=dev,
+                                           dtype=torch.bfloat16),
+                                torch.eye(4, device=dev)[None])
+        off = (pts[0, 0] - torch.arange(W, device=dev)).abs()
+        grid_cols_off = {"columns": int((off > 0).sum()),
+                         "max_px": float(off.max())}
     emit({"phase": "train_main", "steps": steps, "val_batches": vals,
           "batch": TRAIN_B, "res": [H, W], "stereo_warp_kernel": "on",
+          "bfloat16": bf16, "checkpoint_float_dtypes": sorted(dtypes),
+          "bf16_backprojection_grid_off": grid_cols_off,
           "launches": launches, "seconds_incl_load_and_init": seconds,
           "losses": summary["losses"], "checkpoint": folder})
 
@@ -1396,11 +1586,14 @@ def phase_train_contracts(dev, root: str):
             require(rel[worst] <= 1e-3, ("on vs off gradients", worst,
                                          rel[worst]))
 
-    hints = learning_contract(dev)
-    emit({"phase": "contract_learns", "batch": 4, "steps": 30,
-          "hint_loss_first": hints[0], "hint_loss_last": hints[-1]})
-    require(all(v == v for v in hints) and hints[-1] <= 0.85 * hints[0],
-            ("hint loss did not fall 15%", hints[0], hints[-1]))
+    for bf16 in (False, True):
+        hints, dtypes = learning_contract(dev, bf16=bf16)
+        emit({"phase": "contract_learns", "batch": 4, "steps": 30,
+              "bfloat16": bf16, "hint_loss_first": hints[0],
+              "hint_loss_last": hints[-1], "state_float_dtypes": dtypes})
+        require(all(v == v for v in hints) and hints[-1] <= 0.85 * hints[0],
+                ("hint loss did not fall 15%", bf16, hints[0], hints[-1]))
+        require(dtypes == ["torch.float32"], ("state dtypes", dtypes))
     return batch
 
 
@@ -1436,18 +1629,27 @@ def twin_batch(dev, n: int = 4, shift: int = round(4 * W / 96)):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def learning_contract(dev, steps: int = 30):
-    """Hint loss per step of the learning twin (B=4, "on", lr 1e-4)."""
+def learning_contract(dev, steps: int = 30, bf16: bool = False):
+    """Hint loss per step of the learning twin (B=4, "on", lr 1e-4;
+    bf16: mixed precision), and the float dtypes of the parameters, BN
+    buffers and Adam moments after the steps."""
     import torch
     from wavelet_monodepth_tpu_torch.train.kitti import KittiTrainSetup
     from wavelet_monodepth_tpu_torch.utils.config import parse_kitti_args
-    opts = parse_kitti_args(train_argv("unused", "unused", "on", batch=4))
+    opts = parse_kitti_args(train_argv("unused", "unused", "on", batch=4)
+                            + (["--bfloat16"] if bf16 else []))
     setup = KittiTrainSetup(opts, steps_per_epoch=1000, device=dev)
     state = setup.init_state(torch.Generator().manual_seed(0))
     noise = torch.Generator(device=dev).manual_seed(0)
     batch = twin_batch(dev)
-    return [float(setup.train_step(state, batch, noise)["depth_hint_loss/0"])
-            for _ in range(steps)]
+    hints = [float(setup.train_step(state, batch, noise)
+                   ["depth_hint_loss/0"]) for _ in range(steps)]
+    tensors = [t for m in (state.encoder, state.decoder)
+               for t in list(m.parameters()) + list(m.buffers())]
+    tensors += [v for d in state.optimizer.state.values()
+                for v in d.values() if torch.is_tensor(v)]
+    dtypes = sorted({str(t.dtype) for t in tensors if t.is_floating_point()})
+    return hints, dtypes
 
 
 # --- phase 10: training times ------------------------------------------------
@@ -1509,20 +1711,30 @@ def trace_calls(fn, calls: int):
     return spans, by_kernel, by_op, busy, wall_ms
 
 
-def profile_forwards(enc, dec, dev) -> None:
+def profile_forwards(enc, dec, dev, encb, decb) -> None:
     """Device busy time, idle share, costliest kernels and ATen ops per
     B=16 forward of each compacted backend (10% maskgen masks,
-    compact_cap 0.5), 3 forwards in one trace each."""
+    compact_cap 0.5) and of the bench's dense and sparse (xla) cells in
+    float32 and bf16 (encb, decb: the bf16 cast), 3 forwards in one trace
+    each."""
     import torch
     from wavelet_monodepth_tpu_torch.utils import maskgen as mg
     disp, raw, ratio, _, _ = edge_stage_masks(16)
     img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
     raw = {i: m.to(dev) for i, m in raw.items()}
-    for backend in COMPACTED:
+    runs = [(b, enc, dec, img, b) for b in COMPACTED]
+    for name, e, d, x in (("f32", enc, dec, img),
+                          ("bf16", encb, decb, img.bfloat16())):
+        runs += [(f"dense_{name}", e, d, x, None),
+                 (f"sparse_xla_{name}", e, d, x, "xla")]
+    for backend, e, d, x, use in runs:
         def fwd():
             with torch.inference_mode():
-                dec(enc(img), thresh_ratio=ratio, mask_override=raw,
-                    use_pallas=backend)
+                if use is None:
+                    d(e(x))
+                else:
+                    d(e(x), thresh_ratio=ratio, mask_override=raw,
+                      use_pallas=use)
         fwd()
         spans, by_kernel, by_op, busy, wall_ms = trace_calls(fwd, 3)
         top_k = sorted(((v[1], n[:100], v[0]) for n, v in by_kernel.items()),
@@ -1642,8 +1854,10 @@ def phase_train_times(dev, root: str, batch):
     from wavelet_monodepth_tpu_torch.utils.config import parse_kitti_args
 
     steps = {}
-    for kern in ("on", "auto"):
-        opts = parse_kitti_args(train_argv(root, "unused", kern))
+    for kern in ("on", "auto", "on_bf16"):
+        opts = parse_kitti_args(
+            train_argv(root, "unused", kern.split("_")[0])
+            + (["--bfloat16"] if kern.endswith("bf16") else []))
         setup = KittiTrainSetup(opts, steps_per_epoch=1000, device=dev)
         state = setup.init_state(torch.Generator().manual_seed(0))
         noise = torch.Generator(device=dev).manual_seed(0)
@@ -1651,9 +1865,10 @@ def phase_train_times(dev, root: str, batch):
     t = time_variants({k: (lambda k=k: steps[k][0].train_step(
         steps[k][1], batch, steps[k][2])) for k in steps}, iters=10)
     emit({"phase": "time_train_step", "batch": TRAIN_B, "res": [H, W],
-          "dtype": "float32", "tf32": False,
+          "dtype": "float32 (on_bf16: bf16 mixed precision)", "tf32": False,
           "variants": {"on": "K3 banded warp kernel",
-                       "auto": "F.grid_sample"}, **t, **_card})
+                       "auto": "F.grid_sample",
+                       "on_bf16": "K3, --bfloat16"}, **t, **_card})
 
     for kern in steps:
         profile_step(*steps[kern], batch, kern)
@@ -1749,20 +1964,27 @@ def main():
     phase_build()
     errs = {k: 0.0 for k in KERNELS}
     errs.update(banded_warp_fwd=0.0, banded_warp_bwd=0.0, band_gather=0.0,
-                block_scatter=0.0, fused_wave_stage=0.0)
+                block_scatter=0.0, band_gather_bf16=0.0,
+                block_scatter_bf16=0.0, fused_wave_stage=0.0)
     phase_kernel_vs_plain(dev, errs)
     launches, enc, dec = phase_slice(dev)
     phase_contracts(dev, enc, dec)
-    phase_block_io_vs_plain(dev, enc, dec, errs)
+    launches.update(phase_bf16_serving(dev, enc, dec))
+    encb, decb = bf16_copies(enc, dec)
+    phase_block_io_vs_plain(dev, enc, dec, errs, torch.float32)
+    phase_block_io_vs_plain(dev, encb, decb, errs, torch.bfloat16)
     fused_launches, stage_ins = phase_fused_stage(dev, enc, dec, errs)
     kernel_ms = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "library_ms": 0.0, "bound_ms_f32_cuda_cores": 0.0}
                  for k in KERNELS}
     phase_times(dev, enc, dec, kernel_ms)
-    block_io_ms = phase_block_io_times(dev, enc, dec)
+    block_io_ms = phase_block_io_times(dev, enc, dec, torch.float32)
+    block_io_ms_bf16 = phase_block_io_times(dev, encb, decb, torch.bfloat16)
     fused_ms = phase_fused_times(dec, stage_ins)
     del stage_ins
-    profile_forwards(enc, dec, dev)
+    profile_forwards(enc, dec, dev, encb, decb)
+    del encb, decb
+    phase_bench(dev)
     # ms / plain_ms / bound_ms / library_ms: the 12 launches of one B=16
     # sparse forward at the 10% operating point, summed medians
     kernels = [{
@@ -1771,11 +1993,16 @@ def main():
         "replaces": KERNELS[k], "launches": launches[k],
         "max_abs_err": errs[k], **kernel_ms[k]} for k in KERNELS]
     # K5 / K6: the 18 / 6 launches of one B=16 compact forward, summed;
-    # launches: the 4 served requests'
+    # launches: the 4 served requests'; the _bf16 keys: the bfloat16
+    # instance, its launches those of the bf16 serving path (B=16 and B=1)
     kernels += [{
         "name": k, "route": "cuda", "source": SOURCES["blockio"],
         "replaces": BLOCKIO_REPLACES[k], "launches": launches[k],
-        "max_abs_err": errs[k], **block_io_ms[k]} for k in BLOCKIO_REPLACES]
+        "max_abs_err": errs[k], **block_io_ms[k],
+        "launches_bf16": launches[k + "_bf16"],
+        "max_abs_err_bf16": errs[k + "_bf16"],
+        **{f"{key}_bf16": v for key, v in block_io_ms_bf16[k].items()}}
+        for k in BLOCKIO_REPLACES]
     # K2: its 3 scales at B=16, summed; JAX wires K2 into no decoder path,
     # so its launches are this script's own calls on the decoder's stage
     # inputs (scales 3, 2, 1 at B=16 and B=1)
@@ -1797,6 +2024,8 @@ def main():
         emit({"phase": "kitti_mount", "pairs": 36, "size": KITTI_FULL,
               "seconds": time.perf_counter() - t0})
         warp_launches = phase_train_slice(dev, root, os.path.join(tmp, "log"))
+        phase_train_slice(dev, root, os.path.join(tmp, "log_bf16"),
+                          bf16=True)
         batch = phase_train_contracts(dev, root)
         warp_ms = phase_train_times(dev, root, batch)
     # ms: one K3 launch at (12, 192, 640, 3) (backward: the training

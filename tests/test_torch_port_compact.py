@@ -6,9 +6,11 @@ interpret mode as tests/test_compact.py runs them.
 Tolerances: wtile_stack, the gathers and the scatters are copies, so
 they are compared bitwise; compact_wave_stage within 1e-5 over the whole
 tensors, the image-border ring included (XLA-CPU and ATen sum the convs
-in different orders); overflow counts exactly. The CUDA kernels are
-checked against the plain versions by the `cuda`-marked tests at the end
-(and by chip_smoke.py).
+in different orders); overflow counts exactly. In bfloat16 (the dtype of
+the bf16 compact backend) the copies are again bitwise, and the stage
+is held to BF16_RTOL of each output's largest value. The CUDA kernels
+are checked against the plain versions, in float32 and bfloat16, by the
+`cuda`-marked tests at the end (and by chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ from wavelet_monodepth_tpu_torch.ops import compact as cp
 
 torch.set_num_threads(1)
 ATOL = 1e-5
+BF16_RTOL = 0.03
 N, HL, WL, CX, CS, CD = 2, 16, 40, 64, 64, 32
 
 
@@ -163,6 +166,65 @@ def test_stage_primitives_match_jax():
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("halo,th,tw,c", [(2, 4, 16, 5), (1, 8, 17, 1),
+                                           (2, 8, 9, 1)])
+def test_block_io_bf16_bitwise_matches_jax(halo, th, tw, c):
+    """In bfloat16 (the dtype of JAX's bf16 compact backend), wtile_stack
+    and the plain K5/K6 equal JAX's kernels in interpret mode bitwise,
+    C=1 rows of odd widths included."""
+    rng = np.random.RandomState(th + tw + c + 1)
+    n, h, w = 2, 13, 37
+    x = rng.randn(n, h, w, c).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    xj = jnp.asarray(x, jnp.bfloat16)
+
+    def same(t, j):
+        assert t.dtype == torch.bfloat16 and j.dtype == jnp.bfloat16
+        # bf16 -> f32 is exact and one-to-one
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      np.asarray(j, np.float32))
+
+    stack = bio.wtile_stack(xt, th, tw, halo)
+    stack_j = jbio.wtile_stack(xj, th, tw, halo)
+    same(stack, stack_j)
+    nh, nw = -(-h // th), -(-w // tw)
+    tiles = np.stack(np.meshgrid(np.arange(n), np.arange(nh), np.arange(nw),
+                                 indexing="ij"), -1).reshape(-1, 3)
+    idx = tiles[rng.permutation(len(tiles))].astype(np.int32)
+    for window_h in sorted({th, th + 2 * halo, 2 * th}):
+        same(bio.band_gather(stack, torch.from_numpy(idx), th, window_h),
+             jbio.band_gather(stack_j, jnp.asarray(idx), th, window_h,
+                              interpret=True))
+    vals = rng.randn(len(idx) - 2, th, tw, c).astype(np.float32)
+    same(bio.block_scatter(torch.from_numpy(vals).to(torch.bfloat16),
+                           torch.from_numpy(idx[2:]), n, nh, nw),
+         jbio.block_scatter(jnp.asarray(vals, jnp.bfloat16),
+                            jnp.asarray(idx[2:]), n, nh, nw,
+                            interpret=True))
+
+
+@pytest.mark.parametrize("io", ["pallas", "xla"])
+def test_compact_stage_bf16_matches_jax(stage_case, io):
+    """The stage in bfloat16 (inputs and weights) against JAX's bf16
+    stage: outputs stay bfloat16, and agree within BF16_RTOL of each
+    tensor's largest value (both round each conv's float32 sums to
+    bfloat16, from sums taken in different orders; measured: 1.6% for
+    yh, 8 bf16 ulps at 0.48, and 0.5% for x1, one ulp at 3.2)."""
+    x, skip, masks, prm = stage_case
+    arrays = (x, skip, masks["edges"], prm)
+    yh, x1 = _stage(cp, arrays,
+                    lambda a: torch.from_numpy(a).to(torch.bfloat16),
+                    th=8, tw=16, cap_ratio=1.0, io=io)
+    yh_j, x1_j = _stage(jcp, arrays, lambda a: jnp.asarray(a, jnp.bfloat16),
+                        th=8, tw=16, cap_ratio=1.0, io=io)
+    assert yh.dtype == x1.dtype == torch.bfloat16
+    assert yh_j.dtype == x1_j.dtype == jnp.bfloat16
+    for ours, ref in ((yh, yh_j), (x1, x1_j)):
+        err = np.abs(ours.float().numpy() - np.asarray(ref, np.float32))
+        peak = np.abs(np.asarray(ref, np.float32)).max()
+        assert err.max() <= BF16_RTOL * peak, (err.max(), peak)
+
+
 def test_cpu_path_counts_no_launch():
     bio.reset_launches()
     stack = bio.wtile_stack(torch.zeros(1, 8, 16, 2), 4, 8, 1)
@@ -212,9 +274,39 @@ def test_block_io_kernels_match_plain_on_card(cuda_device, c, tw, halo):
 
 
 @pytest.mark.cuda
-def test_block_io_kernels_reject_bf16_on_card(cuda_device):
-    stack = torch.zeros(1, 1, 3, 4, 8, 1, device=cuda_device,
-                        dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="float32"):
-        bio.band_gather(stack, torch.zeros(1, 3, dtype=torch.int32,
-                                           device=cuda_device), 4, 4)
+@pytest.mark.parametrize("c,tw,halo", [(64, 16, 2), (1, 16, 1), (1, 17, 1),
+                                       (3, 7, 0), (1, 9, 2)])
+def test_block_io_kernels_match_plain_in_bf16_on_card(cuda_device, c, tw,
+                                                      halo):
+    """The bfloat16 instances of K5 and K6 equal their plain versions
+    bitwise, 16-byte and 2-byte copies (C=1 rows of odd widths), and
+    count as bfloat16 launches; other dtypes raise."""
+    g = torch.Generator().manual_seed(c + tw)
+    n, h, w, th = 2, 21, 70, 8
+    x = torch.randn(n, h, w, c, generator=g).to(cuda_device,
+                                                torch.bfloat16)
+    stack = bio.wtile_stack(x, th, tw, halo)
+    nh, nw = -(-h // th), -(-w // tw)
+    idx = torch.stack(torch.meshgrid(torch.arange(n), torch.arange(nh),
+                                     torch.arange(nw), indexing="ij"),
+                      -1).reshape(-1, 3)
+    idx = idx[torch.randperm(len(idx), generator=g)].to(torch.int32)
+    idx = idx.to(cuda_device)
+    before = dict(bio.launches_bf16)
+    for window_h in sorted({th, th + 2 * halo, 2 * th}):
+        out = bio.band_gather(stack, idx, th, window_h)
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, bio.band_gather_plain(stack, idx, th,
+                                                      window_h))
+    vals = torch.randn(len(idx) - 1, th, tw, c, generator=g).to(
+        cuda_device, torch.bfloat16)
+    out = bio.block_scatter(vals, idx[1:], n, nh, nw)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, bio.block_scatter_plain(vals, idx[1:], n, nh,
+                                                    nw))
+    torch.cuda.synchronize()
+    assert bio.launches_bf16["band_gather"] == (
+        before["band_gather"] + len({th, th + 2 * halo, 2 * th}))
+    assert bio.launches_bf16["block_scatter"] == before["block_scatter"] + 1
+    with pytest.raises(TypeError, match="bfloat16"):
+        bio.band_gather(stack.half(), idx, th, th)

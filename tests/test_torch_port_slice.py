@@ -71,6 +71,8 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.ops.fused_stage",
     "wavelet_monodepth_tpu_torch.tools.kernel_ab",
     "wavelet_monodepth_tpu_torch.tools.k2_phases",
+    "wavelet_monodepth_tpu_torch.utils.precision",
+    "wavelet_monodepth_tpu_torch.tools.bench",
 ]
 
 
@@ -313,5 +315,9 @@ def test_infer_rejects_unported_inputs(checkpoint):
     with pytest.raises(SystemExit, match="flax"):
         tinfer.load_model(_args(checkpoint, torch_model_path=None,
                                 model_path="x"), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinfer.load_model(_args(checkpoint, bfloat16=True), "cpu")
+    # bfloat16 serves on every backend but the tile-sparse conv's, which
+    # the JAX package cannot lower in bfloat16
+    for backend in (True, "pallas2d"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tinfer.load_model(_args(checkpoint, bfloat16=True), "cpu",
+                              backend)

@@ -290,7 +290,7 @@ def test_options_flag_for_flag():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(bfloat16=True), "bfloat16"),
+    (dict(native_decode=True), "native_decode"),
     (dict(frame_ids=(0, -1, 1)), "pose"),
     (dict(encoder_type="mobilenet"), "mobilenet"),
     (dict(use_wavelets=False), "DepthDecoder"),

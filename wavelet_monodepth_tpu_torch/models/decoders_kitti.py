@@ -22,7 +22,9 @@ neg heads' 3x3); "capacity" per-conv top-K tile compaction
 6 + 2 launches per sparse scale) and "sites" whole-stage site compaction
 (`ops/sites.py`). `compact_cap` is the capacity ratio of the three
 compacted backends; their dropped tiles or sites are ("overflow", s).
-`use_polyphase` is not ported.
+`use_polyphase` is not ported. In bfloat16 (a fully cast model, as
+`tools/infer.py --bfloat16` builds it) every backend but "pallas" and
+"pallas2d" runs, as in JAX; those two raise.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from ..ops.compact import (compact_wave_stage, default_tile_shape,
 from ..ops.convops import conv1x1, conv3x3
 from ..ops.sites import site_wave_stage, stage_site_overflow
 from ..ops.wavelets import haar_idwt
-from .layers import ConvBlock, WaveConv, sparse_backend, upsample_concat
+from .layers import (ConvBlock, WaveConv, check_backend_dtype,
+                     sparse_backend, upsample_concat)
 
 Tensor = torch.Tensor
 
@@ -205,8 +208,9 @@ class KittiWaveletDecoder(nn.Module):
                 compact_cap: float = 0.5,
                 mask_override: Optional[dict] = None) -> dict:
         backend = sparse_backend(use_pallas)
-        outputs = {}
         x = features[-1]
+        check_backend_dtype(backend, x.dtype)
+        outputs = {}
         yl = yh = None
         # per-image op counts (N,): each image accounts like a reference
         # batch-1 run

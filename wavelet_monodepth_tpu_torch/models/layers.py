@@ -68,6 +68,19 @@ def sparse_backend(use_pallas) -> str:
     return backend
 
 
+def check_backend_dtype(use_pallas, dtype: torch.dtype) -> None:
+    """Raise where JAX cannot run the backend in `dtype`: its tile-sparse
+    conv kernels (K1/K4, "pallas" and "pallas2d") stage into a float32
+    scratch and fail to lower in bfloat16; every other backend runs it."""
+    backend = sparse_backend(use_pallas)
+    if dtype == torch.bfloat16 and backend in ("pallas", "pallas2d"):
+        raise NotImplementedError(
+            f"use_pallas={backend!r} runs float32 only: its kernel stages "
+            "into a float32 scratch, and the JAX package's cannot lower "
+            "in bfloat16 (ROADMAP.md, Queue 3). bfloat16 runs on the "
+            "'xla', 'compact', 'sites' and 'capacity' backends")
+
+
 def _hwio(owner: nn.Module, w: Tensor) -> Tensor:
     """`w` (OIHW) as contiguous HWIO, kept on `owner` between calls (a copy
     per call would add a kernel to each) and re-made when the parameter

@@ -15,7 +15,11 @@ features agree with JAX to float32 rounding, not bit for bit.
 BatchNorm is `BatchNorm2d` below: torch's in eval mode; in train mode it
 normalises with the batch statistics as torch does but updates the
 running variance with the *biased* batch variance, as flax does (torch
-uses the unbiased one). The port is held to the JAX package.
+uses the unbiased one). The port is held to the JAX package. In
+bfloat16, eval mode runs in the module's dtype (after a full cast the
+running statistics are bfloat16, as JAX casts its batch_stats), and
+train mode computes the batch statistics in float32, as flax does, and
+keeps float32 running statistics exact.
 """
 
 from __future__ import annotations
@@ -27,15 +31,18 @@ import torch.nn.functional as F
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train-mode running variance follows flax:
-    running = (1 - momentum) * running + momentum * biased batch var."""
+    running = (1 - momentum) * running + momentum * biased batch var, the
+    batch statistics taken in float32 or wider."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+            xs = x.to(torch.promote_types(x.dtype, torch.float32))
+            var, mean = torch.var_mean(xs, dim=(0, 2, 3), unbiased=False)
+            dt = self.running_mean.dtype
+            self.running_mean.lerp_(mean.to(dt), self.momentum)
+            self.running_var.lerp_(var.to(dt), self.momentum)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)

@@ -11,12 +11,15 @@ public functions and signatures (less the TPU-only `interpret`):
   block_scatter  write (K, th, tw, C) tiles to their (n, ty, tx) home in
                  a zeros canvas (N, nh*th, nw*tw, C)                 (K6)
 
-Both are pure copies. On a CUDA tensor they launch the hand-written
-Hopper kernels of `csrc/blockio.cu` or raise; on a CPU tensor they run
-`band_gather_plain` / `block_scatter_plain`, which are also what the
-kernels are checked against on the card (bitwise: nothing is summed).
+Both are pure copies, in float32 or bfloat16 (the JAX kernels take the
+data's dtype). On a CUDA tensor they launch the hand-written Hopper
+kernels of `csrc/blockio.cu` (the instance of the data's dtype) or
+raise; on a CPU tensor they run `band_gather_plain` /
+`block_scatter_plain`, which are also what the kernels are checked
+against on the card (bitwise: nothing is summed).
 
-`launches` counts kernel launches per wrapper; the CPU path never counts.
+`launches` counts kernel launches per wrapper, both dtypes;
+`launches_bf16` the bfloat16 ones among them. The CPU path never counts.
 """
 
 from __future__ import annotations
@@ -32,11 +35,16 @@ Tensor = torch.Tensor
 
 # kernel launches per wrapper since the last reset_launches()
 launches = {"band_gather": 0, "block_scatter": 0}
+launches_bf16 = {"band_gather": 0, "block_scatter": 0}
+
+# the kernels' dtypes and the suffix of their C entry points
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, launches_bf16):
+        for k in counts:
+            counts[k] = 0
 
 
 def wtile_stack(x: Tensor, th: int, tw: int, halo: int,
@@ -146,10 +154,11 @@ def _kernel_lib():
         from ..kernels import build
         lib = build.load("blockio")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.band_gather_f32.argtypes = [p] * 3 + [i] * 8 + [p]
-        lib.band_gather_f32.restype = i
-        lib.block_scatter_f32.argtypes = [p] * 3 + [i] * 8 + [p]
-        lib.block_scatter_f32.restype = i
+        for suffix in KERNEL_DTYPES.values():
+            for name in ("band_gather", "block_scatter"):
+                fn = getattr(lib, f"{name}_{suffix}")
+                fn.argtypes = [p] * 3 + [i] * 8 + [p]
+                fn.restype = i
         lib.blockio_error_string.argtypes = [i]
         lib.blockio_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -157,8 +166,9 @@ def _kernel_lib():
 
 
 def _check_kernel_inputs(data: Tensor, idx: Tensor) -> Tensor:
-    if data.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes float32; got {data.dtype}")
+    if data.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16; got "
+                        f"{data.dtype}")
     if not data.is_contiguous():
         raise ValueError("the block IO kernels need contiguous data")
     if data.numel() >= 2 ** 31:
@@ -172,20 +182,26 @@ def _raise_on(err: int, what: str) -> None:
                            + _kernel_lib().blockio_error_string(err).decode())
 
 
+def _count(name: str, dtype: torch.dtype) -> None:
+    launches[name] += 1
+    if dtype == torch.bfloat16:
+        launches_bf16[name] += 1
+
+
 def _launch_gather(stack: Tensor, idx: Tensor, window_h: int) -> Tensor:
     idx = _check_kernel_inputs(stack, idx)
     n, nw, nhp, th, twp, c = stack.shape
     k = idx.shape[0]
-    out = torch.empty((k, window_h, twp, c), dtype=torch.float32,
+    out = torch.empty((k, window_h, twp, c), dtype=stack.dtype,
                       device=stack.device)
     if out.numel() == 0:
         return out
-    lib = _kernel_lib()
+    fn = getattr(_kernel_lib(), f"band_gather_{KERNEL_DTYPES[stack.dtype]}")
     stream = torch.cuda.current_stream(stack.device).cuda_stream
-    _raise_on(lib.band_gather_f32(
-        stack.data_ptr(), idx.data_ptr(), out.data_ptr(), k, n, nw, nhp,
-        th, twp * c, window_h, stack.device.index, stream), "band_gather")
-    launches["band_gather"] += 1
+    _raise_on(fn(stack.data_ptr(), idx.data_ptr(), out.data_ptr(), k, n, nw,
+                 nhp, th, twp * c, window_h, stack.device.index, stream),
+              "band_gather")
+    _count("band_gather", stack.dtype)
     return out
 
 
@@ -195,14 +211,13 @@ def _launch_scatter(vals: Tensor, idx: Tensor, n: int, nh: int,
     (chip_smoke.py times this)."""
     idx = _check_kernel_inputs(vals, idx)
     k, th, tw, c = vals.shape
-    out = torch.zeros((n, nh * th, nw * tw, c), dtype=torch.float32,
+    out = torch.zeros((n, nh * th, nw * tw, c), dtype=vals.dtype,
                       device=vals.device)
     if vals.numel() == 0:
         return out
-    lib = _kernel_lib()
+    fn = getattr(_kernel_lib(), f"block_scatter_{KERNEL_DTYPES[vals.dtype]}")
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    _raise_on(lib.block_scatter_f32(
-        vals.data_ptr(), idx.data_ptr(), out.data_ptr(), k, n, nh, nw, th,
-        tw, c, vals.device.index, stream), "block_scatter")
-    launches["block_scatter"] += 1
+    _raise_on(fn(vals.data_ptr(), idx.data_ptr(), out.data_ptr(), k, n, nh,
+                 nw, th, tw, c, vals.device.index, stream), "block_scatter")
+    _count("block_scatter", vals.dtype)
     return out

@@ -73,7 +73,13 @@ def transformation_from_parameters(axisangle: Tensor, translation: Tensor,
 
 def backproject_depth(depth: Tensor, inv_k: Tensor) -> Tensor:
     """Depth (N, H, W, 1) and inv_K (N, 4, 4) -> homogeneous camera points
-    (N, 4, H*W)."""
+    (N, 4, H*W), in the promoted dtype of the two.
+
+    The pixel grid is built in depth's dtype, as JAX builds it. Under
+    bfloat16 mixed precision depth is bfloat16, and so is the grid: from
+    x = 256 up, bfloat16 holds only every second integer (every fourth
+    from 512), so columns are off by up to 2 px at 640 wide. The port
+    reproduces that fault of the reference (ROADMAP.md, Queue 3)."""
     n, h, w, _ = depth.shape
     ys, xs = torch.meshgrid(
         torch.arange(h, dtype=depth.dtype, device=depth.device),
@@ -82,7 +88,8 @@ def backproject_depth(depth: Tensor, inv_k: Tensor) -> Tensor:
     pix = torch.stack([xs.reshape(-1), ys.reshape(-1),
                        torch.ones(h * w, dtype=depth.dtype,
                                   device=depth.device)])        # (3, HW)
-    cam = torch.matmul(inv_k[:, :3, :3], pix)
+    dt = torch.promote_types(inv_k.dtype, depth.dtype)
+    cam = torch.matmul(inv_k[:, :3, :3].to(dt), pix.to(dt))
     cam = depth.reshape(n, 1, h * w) * cam
     return torch.cat([cam, torch.ones_like(cam[:, :1])], dim=1)
 

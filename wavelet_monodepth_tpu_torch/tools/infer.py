@@ -11,7 +11,7 @@ magma-coloured <name>_disp.jpeg with a 95th-percentile vmax.
 Usage:
   python -m wavelet_monodepth_tpu_torch.tools.infer --image_path img.png \
       --torch_model_path weights_folder [--use_sparse --threshold 0.1] \
-      [--device cpu]
+      [--bfloat16] [--device cpu]
 """
 
 from __future__ import annotations
@@ -173,7 +173,9 @@ def parse_args(argv=None):
     p.add_argument("--use_sparse", action="store_true")
     p.add_argument("--threshold", type=float, default=0.1)
     p.add_argument("--bfloat16", action="store_true",
-                   help="run the model in bfloat16 (not ported yet)")
+                   help="run the model in bfloat16: parameters, BN "
+                        "statistics, input and activations; outputs come "
+                        "back float32")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     return p.parse_args(argv)
@@ -182,14 +184,21 @@ def parse_args(argv=None):
 def load_model(args, device, use_pallas=False, compact_cap=0.5):
     """Build the encoder and decoder from --torch_model_path on `device`.
     Returns (forward, (feed_h, feed_w)); forward(image (N, H, W, 3) float
-    tensor on `device`, thresh or None) -> the decoder's output dict.
+    tensor on `device`, thresh or None, mask_override=None) -> the
+    decoder's output dict (mask_override: the decoder's, raw masks that
+    replace the threshold's).
     `use_pallas` is the decoder's sparse backend: False/"xla" (masked
     dense), True/"pallas" and "pallas2d" (the tile-sparse conv kernel),
     "capacity", "compact" (the block IO kernels) or "sites";
     `compact_cap` is the capacity ratio of the last three. The CLI serves
-    the default backend."""
+    the default backend. With --bfloat16 the model is cast whole to
+    bfloat16 after loading (`utils/precision.py`, as JAX's `load_model`),
+    forward casts the image to bfloat16 and the outputs back to float32;
+    "pallas" and "pallas2d" raise in bfloat16, as JAX cannot lower them."""
     from ..models.decoders_kitti import KittiWaveletDecoder
+    from ..models.layers import check_backend_dtype
     from ..models.resnet import ResnetEncoder
+    from ..utils.precision import cast_floats, wrap_forward_bf16
     from . import torch_import as ti
 
     if args.model_path and not args.torch_model_path:
@@ -201,9 +210,9 @@ def load_model(args, device, use_pallas=False, compact_cap=0.5):
     if not args.torch_model_path:
         raise SystemExit("pass --torch_model_path (folder with the "
                          "reference's encoder.pth/depth.pth)")
-    if getattr(args, "bfloat16", False):
-        raise NotImplementedError("--bfloat16 is not ported yet (ROADMAP.md, "
-                                  "follow-ups of the inference slice: bf16)")
+    bf16 = getattr(args, "bfloat16", False)
+    if bf16:
+        check_backend_dtype(use_pallas, torch.bfloat16)
 
     encoder = ResnetEncoder(num_layers=args.num_layers)
     decoder = KittiWaveletDecoder(num_ch_enc=encoder.num_ch_enc)
@@ -217,15 +226,20 @@ def load_model(args, device, use_pallas=False, compact_cap=0.5):
     feed_w = report["meta"].get("width", 640)
     encoder.to(device).eval()
     decoder.to(device).eval()
+    if bf16:
+        cast_floats(encoder, torch.bfloat16)
+        cast_floats(decoder, torch.bfloat16)
 
     @torch.inference_mode()
-    def forward(image: torch.Tensor, thresh):
+    def forward(image: torch.Tensor, thresh, mask_override=None):
         feats = encoder(image)
         if thresh is None:
             return decoder(feats)
         return decoder(feats, thresh_ratio=thresh, use_pallas=use_pallas,
-                       compact_cap=compact_cap)
+                       compact_cap=compact_cap, mask_override=mask_override)
 
+    if bf16:
+        forward = wrap_forward_bf16(forward)
     return forward, (feed_h, feed_w)
 
 

@@ -6,12 +6,15 @@ flags (`utils/config.py`): threaded item loading, pinned host-to-device
 copies, the train step, the reference's log cadence with one-batch
 validation on each log step, and per-epoch checkpoints in the reference's
 layout. It runs on the card (--device cuda, the default, raises without
-one) unless --device cpu is given.
+one) unless --device cpu is given. --bfloat16 trains in bf16 mixed
+precision (`train/kitti.py`); the master parameters, Adam's moments and
+the BN statistics stay float32, and so do the checkpoints.
 
 Usage:
   python -m wavelet_monodepth_tpu_torch.tools.train_kitti --data_path ... \\
       --use_stereo --frame_ids 0 --use_depth_hints --use_wavelets \\
-      --split eigen_full --model_name wavelets_r18 [--stereo_warp_kernel on]
+      --split eigen_full --model_name wavelets_r18 [--stereo_warp_kernel on] \\
+      [--bfloat16]
 """
 
 from __future__ import annotations

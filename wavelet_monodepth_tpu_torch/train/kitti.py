@@ -2,7 +2,8 @@
 
 Counterpart of `wavelet_monodepth_tpu/train/kitti.py` (the reference's
 `Trainer`, `KITTI/trainer.py:30-785`) for the stereo (+ depth hints)
-configurations: ResNet18 + the KITTI wavelet decoder, f32, one card.
+configurations: ResNet18 + the KITTI wavelet decoder, f32 or bf16 mixed
+precision, one card.
 
 Where JAX returns a new state from a pure step, the port's `train_step`
 updates the state in place (parameters, BN running statistics, Adam
@@ -13,8 +14,19 @@ variance with the biased batch variance, as flax does
 in the CLI: the JAX package's `lax.scan` amortises a TPU dispatch cost
 the port does not have.
 
+`--bfloat16` is JAX's mixed-precision step
+(`make_train_step(mixed_precision=True)`): the networks run forward and
+backward in bfloat16 on a bfloat16 copy of the float32 master
+parameters, made inside the differentiated function, so the gradients
+arrive float32 at the masters and Adam's state stays float32. Only the
+("color_aug", ...) inputs are cast; the warps and geometry take the
+float32 colour, intrinsics and poses (the pixel grid of the
+backprojection follows depth's dtype, as in JAX: `ops/geometry.py`); BN
+keeps float32 running statistics with float32 batch statistics; the
+losses come back float32. The eval step runs in float32, as JAX's.
+
 Not ported yet, and raising: pose networks (monocular and M+S configs),
-bf16 mixed precision, the baseline decoder and the other encoders.
+the baseline decoder and the other encoders.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from ..models.factory import make_depth_decoder, make_depth_encoder
 from ..models.layers import init_params
 from ..ops import augment
 from ..utils.config import KittiOptions
+from ..utils.precision import cast_floats
 from . import losses_kitti
 from .optim import make_optimizer, steplr
 
@@ -46,10 +59,6 @@ class KittiTrainSetup:
     def __init__(self, opts: KittiOptions, steps_per_epoch: int = 1000,
                  device="cpu"):
         opts.validate_for_training()
-        if opts.bfloat16:
-            raise NotImplementedError(
-                "--bfloat16 training is not ported yet (ROADMAP.md, "
-                "follow-ups of the training slice: bf16 mixed precision)")
         if opts.use_pose_net:
             raise NotImplementedError(
                 "pose networks are not ported yet (ROADMAP.md, Queue 1 item "
@@ -118,13 +127,17 @@ class KittiTrainSetup:
                 decoder.blocks["waveconv_4_ll"][2].conv.bias.fill_(b)
 
     # ------------------------------------------------------------------
-    def forward(self, state: TrainState, inputs: Dict, noise, train: bool):
+    def forward(self, state: TrainState, inputs: Dict, noise, train: bool,
+                params: Optional[tuple] = None):
         """`process_batch` (`trainer.py:231-252`): encoder -> decoder ->
-        warps -> losses. Returns (outputs, losses)."""
+        warps -> losses. Returns (outputs, losses). `params`, when given,
+        is ({encoder name: tensor}, {decoder name: tensor}), which the
+        networks run with in place of their own parameters."""
         opts = self.opts
         state.encoder.train(train)
-        feats = state.encoder(inputs[("color_aug", "0", 0)])
-        outputs = state.decoder(feats)
+        enc_p, dec_p = params if params is not None else (None, None)
+        feats = _call(state.encoder, enc_p, inputs[("color_aug", "0", 0)])
+        outputs = _call(state.decoder, dec_p, feats)
         outputs = losses_kitti.generate_images_pred(inputs, outputs, opts)
         if opts.use_depth_hints:
             losses = losses_kitti.compute_losses_hints(inputs, outputs, opts,
@@ -141,7 +154,18 @@ class KittiTrainSetup:
         for group in state.optimizer.param_groups:
             group["lr"] = self.lr_at(state.step)
         state.optimizer.zero_grad(set_to_none=True)
-        _, losses = self.forward(state, inputs, noise, train=True)
+        params = None
+        if self.opts.bfloat16:
+            # the bf16 copies are made here, under autograd, so backward
+            # casts each gradient back to its float32 master
+            params = tuple({n: p.to(torch.bfloat16)
+                            for n, p in m.named_parameters()}
+                           for m in (state.encoder, state.decoder))
+            inputs = {k: (v.to(torch.bfloat16) if k[0] == "color_aug"
+                          else v) for k, v in inputs.items()}
+        _, losses = self.forward(state, inputs, noise, train=True,
+                                 params=params)
+        losses = cast_floats(losses, torch.float32)
         losses["loss"].backward()
         state.optimizer.step()
         state.step += 1
@@ -152,3 +176,10 @@ class KittiTrainSetup:
         """Forward with the BN running statistics; (outputs, losses)."""
         return self.forward(state, augment.expand_batch(inputs), noise,
                             train=False)
+
+
+def _call(module: torch.nn.Module, params: Optional[dict], *args):
+    """module(*args), with `params` in place of its parameters if given."""
+    if params is None:
+        return module(*args)
+    return torch.func.functional_call(module, params, args)

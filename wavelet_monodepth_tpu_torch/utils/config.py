@@ -81,7 +81,7 @@ class KittiOptions:
     post_process: bool = False
     # additions of the JAX package
     data_axis: int = 1                     # data-parallel device count (the port runs one card)
-    bfloat16: bool = False                 # bf16 mixed-precision training (not ported yet)
+    bfloat16: bool = False                 # bf16 mixed precision: the networks run in bf16 over f32 master params and Adam state (train/kitti.py)
     native_decode: bool = False            # eval feed via the C++ decoder (not ported yet)
     stereo_warp_kernel: str = "auto"       # "s"-frame/hint warp: "auto"/"off" = F.grid_sample, "on" = the banded warp kernel (ops/warp.py)
     checkpoint_backend: str = "msgpack"    # the JAX package's state format; the port writes the reference's .pth folders whatever this says
