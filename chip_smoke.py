@@ -43,7 +43,11 @@ phases; any failure raises and exits non-zero:
   5b. block IO vs plain, float32 and bf16: the 18 gathers and 6 scatters
      of a compact forward at B=16 and B=1, every tile of a stack
      (window_h == th, the last row block) and odd C=1 / C=3 row widths;
-     bitwise equal;
+     bitwise equal; then the synchronising calls of one B=16 compact
+     forward (float32, compact_cap 1.0) under
+     torch.cuda.set_sync_debug_mode("warn"), none of them block_scatter's;
+     after every phase that scatters, the scatter kernel's fault counter
+     (block IO's scatter_faults) must read 0;
   5c. fused wave stage (K2) vs plain (<= 1e-4) and vs the masked-dense
      oracle's interior (2 px for yh and x1, 4 px for yl_new; <= 1e-4) on
      the decoder's stage inputs at scales 3, 2, 1, B=16 and B=1, under
@@ -55,8 +59,9 @@ phases; any failure raises and exits non-zero:
      tile granules, the FLOPs over them and each wrapper's rate on them;
      whole forward dense vs sparse xla / pallas /
      pallas2d / compact / sites / capacity (compact_cap 0.5, and 1.0 for
-     compact and capacity) at B=16 and B=1; K5 and K6
-     summed over one B=16 compact forward's launches, float32 and bf16;
+     compact and capacity) at B=16 and B=1; K5 and K6 (each with its
+     output's allocation) summed over one B=16 compact forward's
+     launches, float32 and bf16;
      K2 per scale at B=16 and B=1, its bound at the 3xTF32 and the f32
      CUDA-core rates; a torch.profiler trace of the compacted backends'
      B=16 forwards and of dense and sparse xla in float32 and bf16
@@ -747,6 +752,76 @@ def phase_block_io_vs_plain(dev, enc, dec, errs, dtype):
               "equal": True})
 
 
+def no_scatter_faults(dev, after: str) -> None:
+    """The scatter kernel counts idx rows outside the grid or naming a tile
+    twice on the card; none may have come since the run began."""
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    faults = bio.scatter_faults(dev)
+    emit({"phase": "scatter_faults", "after": after, "faults": faults})
+    require(faults == 0, ("block_scatter faults", after, faults))
+
+
+def count_syncs(run) -> dict:
+    """run() under torch.cuda.set_sync_debug_mode("warn"): its
+    synchronising calls, each at the innermost line of this repo on the
+    stack, and how many of them came from inside block IO's
+    block_scatter."""
+    import collections
+    import traceback
+    import warnings
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    orig, found, in_scatter = bio.block_scatter, [], []
+
+    def on_warning(message, *rest):
+        if "synchroniz" in str(message):
+            where = [f for f in traceback.extract_stack()[:-1]
+                     if f.filename.startswith(REPO + os.sep)][-1]
+            found.append(f"{os.path.relpath(where.filename, REPO)}:"
+                         f"{where.lineno}")
+
+    def counted(*args):
+        before = len(found)
+        out = orig(*args)
+        in_scatter.append(len(found) - before)
+        return out
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        bio.block_scatter = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            bio.block_scatter = orig
+    return {"syncs": len(found), "block_scatter_calls": len(in_scatter),
+            "syncs_in_block_scatter": sum(in_scatter),
+            "where": collections.Counter(found)}
+
+
+def phase_sync_count(dev, enc, dec) -> None:
+    """The synchronising calls of one B=16 compact forward (float32, 10%
+    maskgen masks, compact_cap 1.0), after one warm-up forward;
+    block_scatter's calls may make none."""
+    import torch
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    disp, raw, ratio, _, _ = edge_stage_masks(16)
+    img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
+    raw = {i: m.to(dev) for i, m in raw.items()}
+    run = compact_forward(enc, dec, img, raw, ratio, cap=1.0)
+    run()
+    torch.cuda.synchronize()
+    # the debug mode's own first use, with no forward inside
+    idle = count_syncs(lambda: None)
+    counts = count_syncs(run)
+    emit({"phase": "sync_count", "forward": "compact, B=16, float32, "
+          "compact_cap 1.0", **counts, "syncs_with_no_forward": idle})
+    require(counts["block_scatter_calls"] == 6
+            and counts["syncs_in_block_scatter"] == 0, counts)
+
+
 # --- phase 5c: the fused wave stage (K2) vs plain and the oracle ------------
 
 FUSED_SCALES = (3, 2, 1)
@@ -1046,8 +1121,8 @@ def library_scatter(vals, idx, n: int, nh: int, nw: int):
 def phase_block_io_times(dev, enc, dec, dtype):
     """K5 and K6 per launch at the 18 + 6 calls of one B=16 compact
     forward (10% maskgen masks, compact_cap 0.5) in `dtype` (enc and dec
-    cast to it): the kernel (with its output's allocation, the canvas
-    zeroing for K6), the plain version and the library call, each call's
+    cast to it): the kernel with its output's allocation (K6 writes all of
+    its canvas), the plain version and the library call, each call's
     bytes bound; sums per forward."""
     import torch
     from wavelet_monodepth_tpu_torch.ops import blockio as bio
@@ -1968,23 +2043,33 @@ def main():
                 block_scatter_bf16=0.0, fused_wave_stage=0.0)
     phase_kernel_vs_plain(dev, errs)
     launches, enc, dec = phase_slice(dev)
+    no_scatter_faults(dev, "slice")
     phase_contracts(dev, enc, dec)
+    no_scatter_faults(dev, "contracts")
     launches.update(phase_bf16_serving(dev, enc, dec))
+    no_scatter_faults(dev, "bf16_serving")
     encb, decb = bf16_copies(enc, dec)
     phase_block_io_vs_plain(dev, enc, dec, errs, torch.float32)
     phase_block_io_vs_plain(dev, encb, decb, errs, torch.bfloat16)
+    no_scatter_faults(dev, "block_io_vs_plain")
+    phase_sync_count(dev, enc, dec)
+    no_scatter_faults(dev, "sync_count")
     fused_launches, stage_ins = phase_fused_stage(dev, enc, dec, errs)
     kernel_ms = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                      "library_ms": 0.0, "bound_ms_f32_cuda_cores": 0.0}
                  for k in KERNELS}
     phase_times(dev, enc, dec, kernel_ms)
+    no_scatter_faults(dev, "time_forward")
     block_io_ms = phase_block_io_times(dev, enc, dec, torch.float32)
     block_io_ms_bf16 = phase_block_io_times(dev, encb, decb, torch.bfloat16)
+    no_scatter_faults(dev, "time_block_io")
     fused_ms = phase_fused_times(dec, stage_ins)
     del stage_ins
     profile_forwards(enc, dec, dev, encb, decb)
+    no_scatter_faults(dev, "profile_forwards")
     del encb, decb
     phase_bench(dev)
+    no_scatter_faults(dev, "bench")
     # ms / plain_ms / bound_ms / library_ms: the 12 launches of one B=16
     # sparse forward at the 10% operating point, summed medians
     kernels = [{

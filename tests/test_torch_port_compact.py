@@ -8,9 +8,11 @@ they are compared bitwise; compact_wave_stage within 1e-5 over the whole
 tensors, the image-border ring included (XLA-CPU and ATen sum the convs
 in different orders); overflow counts exactly. In bfloat16 (the dtype of
 the bf16 compact backend) the copies are again bitwise, and the stage
-is held to BF16_RTOL of each output's largest value. The CUDA kernels
-are checked against the plain versions, in float32 and bfloat16, by the
-`cuda`-marked tests at the end (and by chip_smoke.py).
+is held to BF16_RTOL of each output's largest value. The scatter
+kernel's address arithmetic is emulated in numpy and held bitwise
+against JAX's scatter on the CPU. The CUDA kernels are checked against
+the plain versions, in float32 and bfloat16, by the `cuda`-marked tests
+at the end (and by chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -225,6 +227,142 @@ def test_compact_stage_bf16_matches_jax(stage_case, io):
         assert err.max() <= BF16_RTOL * peak, (err.max(), peak)
 
 
+# --- the scatter kernel's row walk, emulated ----------------------------------
+
+# (n, nh, nw, th, tw, C, which idx rows): the six block_scatter calls of a
+# B=16 640x192 compact forward at compact_cap 0.5 (yh and x1 per scale),
+# then the edge cases: no row, every tile, one tile, only the last row
+# and column blocks, and runs of tw*C elements that are no multiple of
+# 16 bytes (the kernel's element path)
+SCATTER_CASES = {
+    "scale3_yh": (16, 3, 3, 8, 32, 3, "half"),
+    "scale3_x1": (16, 3, 3, 8, 32, 128, "half"),
+    "scale2_yh": (16, 6, 5, 8, 32, 3, "half"),
+    "scale2_x1": (16, 6, 5, 8, 32, 64, "half"),
+    "scale1_yh": (16, 12, 10, 8, 32, 3, "half"),
+    "scale1_x1": (16, 12, 10, 8, 32, 32, "half"),
+    "no_row": (2, 3, 4, 8, 32, 3, "none"),
+    "every_tile": (2, 3, 4, 8, 32, 16, "all"),
+    "one_tile": (2, 3, 4, 8, 32, 3, "one"),
+    "last_row_and_column": (2, 3, 5, 8, 16, 8, "edge"),
+    "c1_tw17": (2, 3, 5, 8, 17, 1, "half"),
+    "c3_tw7": (2, 3, 5, 8, 7, 3, "half"),
+}
+
+
+def _scatter_case(name):
+    """(vals float32 (K, th, tw, C), idx int32 (K, 3), n, nh, nw) from a
+    numpy seed; idx rows distinct, in a random order."""
+    n, nh, nw, th, tw, c, rows = SCATTER_CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    tiles = np.stack(np.meshgrid(np.arange(n), np.arange(nh), np.arange(nw),
+                                 indexing="ij"), -1).reshape(-1, 3)
+    order = rng.permutation(len(tiles))
+    pick = {"half": order[:len(order) // 2], "all": order,
+            "none": order[:0], "one": order[:1],
+            "edge": [i for i in order
+                     if tiles[i, 1] == nh - 1 or tiles[i, 2] == nw - 1]}
+    idx = tiles[pick[rows]].reshape(-1, 3).astype(np.int32)
+    vals = rng.randn(len(idx), th, tw, c).astype(np.float32)
+    return vals, idx, n, nh, nw
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """A float32 or bfloat16 tensor's bits as unsigned integers."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy().view(np.uint32)
+
+
+def _fast_div(d: int):
+    """csrc/blockio.cu's fast_div: (magic, shift) with n // d ==
+    (umulhi(n, magic) + n) >> shift for 0 <= n < 2**31."""
+    s = 0
+    while (1 << s) < d:
+        s += 1
+    return np.uint64(((1 << 32) * ((1 << s) - d)) // d + 1), np.uint64(s)
+
+
+def _divide(n: np.ndarray, d: int) -> np.ndarray:
+    m, s = _fast_div(d)
+    return (((n * m) >> np.uint64(32)) + n) >> s
+
+
+def emulate_scatter_kernel(vals: np.ndarray, idx: np.ndarray, n: int,
+                           nh: int, nw: int, unit: int):
+    """block_scatter_kernel of csrc/blockio.cu in numpy, on the raw bytes
+    of vals (K, th, tw, C) in `unit`-byte units (16: the vector path; the
+    element size: the element path): the inverse table that its atomicMax
+    loop leaves in shared memory, the faults it counts, then the walk over
+    the canvas's flat units, each unit's slice, canvas row and tile row
+    found by the kernel's multiply-and-shift divisions. Returns (canvas
+    bytes as vals' dtype (N, nh*th, nw*tw, C), faults)."""
+    k, th, tw, c = vals.shape
+    run = tw * c * vals.dtype.itemsize
+    assert run % unit == 0
+    length = run // unit
+    units = np.ascontiguousarray(vals).view(np.uint8).reshape(-1, unit)
+    inv = np.full(n * nh * nw, -1, np.int64)
+    faults = 0
+    for row, (b, ty, tx) in enumerate(idx.tolist()):
+        if not (0 <= b < n and 0 <= ty < nh and 0 <= tx < nw):
+            faults += 1
+            continue
+        tile = (b * nh + ty) * nw + tx
+        faults += int(inv[tile] >= 0)
+        inv[tile] = max(inv[tile], row)
+    total = n * nh * th * nw * length
+    out = np.zeros((total, unit), np.uint8)
+    step = 1 << 20
+    for start in range(0, total, step):
+        g = np.arange(start, min(total, start + step), dtype=np.uint64)
+        s = _divide(g, length)              # slice (n, y, tx)
+        q = _divide(s, nw)                  # canvas row (n, y)
+        tx = s - q * np.uint64(nw)
+        tr = _divide(q, th)                 # tile row n*nh + ty
+        src_k = inv[(tr * np.uint64(nw) + tx).astype(np.int64)]
+        r = (q - tr * np.uint64(th)).astype(np.int64)
+        j = (g - s * np.uint64(length)).astype(np.int64)
+        on = src_k >= 0
+        out[start + np.flatnonzero(on)] = units[
+            ((src_k * th + r) * length + j)[on]]
+    return out.view(vals.dtype).reshape(n, nh * th, nw * tw, c), faults
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_scatter_kernel_row_walk_matches_jax(case, dtype):
+    """The kernel's address arithmetic, emulated in numpy on both of its
+    paths (16-byte units where a tile row's bytes allow them, elements
+    always), equals JAX's block_scatter in interpret mode bitwise, at the
+    serving path's six calls and the edge cases; no fault counted."""
+    vals, idx, n, nh, nw = _scatter_case(case)
+    t = torch.from_numpy(vals)
+    if dtype == "bfloat16":
+        t = t.to(torch.bfloat16)
+        raw = _bits(t)
+        jvals = jnp.asarray(raw.view(jnp.bfloat16))
+    else:
+        raw = vals.view(np.uint32)
+        jvals = jnp.asarray(vals)
+    if len(idx):
+        ref = np.asarray(jbio.block_scatter(jvals, jnp.asarray(idx), n, nh,
+                                            nw, interpret=True))
+        ref = ref.view(raw.dtype)
+    else:   # interpret mode cannot trace zero grid steps: JAX's zeros operand
+        th, tw, c = vals.shape[1:]
+        ref = np.zeros((n, nh * th, nw * tw, c), raw.dtype)
+    run = vals.shape[2] * vals.shape[3] * raw.itemsize
+    paths = {raw.itemsize} | ({16} if run % 16 == 0 else set())
+    assert (16 in paths) == (case not in ("c1_tw17", "c3_tw7"))
+    for unit in sorted(paths):
+        ours, faults = emulate_scatter_kernel(raw, idx, n, nh, nw, unit)
+        assert faults == 0
+        np.testing.assert_array_equal(ours, ref, err_msg=f"{unit}-byte "
+                                      "units")
+
+
 def test_cpu_path_counts_no_launch():
     bio.reset_launches()
     stack = bio.wtile_stack(torch.zeros(1, 8, 16, 2), 4, 8, 1)
@@ -310,3 +448,76 @@ def test_block_io_kernels_match_plain_in_bf16_on_card(cuda_device, c, tw,
     assert bio.launches_bf16["block_scatter"] == before["block_scatter"] + 1
     with pytest.raises(TypeError, match="bfloat16"):
         bio.band_gather(stack.half(), idx, th, th)
+
+
+def _on_card(vals: np.ndarray, idx: np.ndarray, dtype, device):
+    t = torch.from_numpy(vals).to(dtype)
+    return t.to(device), torch.from_numpy(idx).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_block_scatter_kernel_bitwise_on_card(cuda_device, case, dtype):
+    """K6 equals block_scatter_plain bit for bit at the serving path's six
+    calls and the edge cases (no row, every tile, one tile, the last row
+    and column blocks, 16-byte and element paths), launches once per
+    call, with no row, and counts no fault."""
+    vals, idx, n, nh, nw = _scatter_case(case)
+    v, i = _on_card(vals, idx, dtype, cuda_device)
+    faults = bio.scatter_faults(cuda_device)
+    before = bio.launches["block_scatter"]
+    out = bio.block_scatter(v, i, n, nh, nw)
+    ref = bio.block_scatter_plain(v, i, n, nh, nw)
+    assert out.dtype == dtype and out.shape == ref.shape
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+    assert bio.launches["block_scatter"] == before + 1
+    assert bio.scatter_faults(cuda_device) == faults
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fault", ["duplicate", "outside"])
+def test_block_scatter_kernel_counts_faults_on_card(cuda_device, dtype,
+                                                    fault):
+    """A row naming a tile an earlier row named, or a row outside the
+    block grid, adds one to scatter_faults and writes nothing outside its
+    own tile: the canvas equals the plain scatter of the other rows (of a
+    duplicated tile the kernel keeps the later row)."""
+    vals, idx, n, nh, nw = _scatter_case("last_row_and_column")
+    bad = idx.copy()
+    if fault == "duplicate":
+        bad[-1] = bad[0]
+        keep = np.arange(1, len(idx))
+    else:
+        bad[2] = (n, 0, 0)
+        keep = np.delete(np.arange(len(idx)), 2)
+    v, i = _on_card(vals, bad, dtype, cuda_device)
+    faults = bio.scatter_faults(cuda_device)
+    out = bio.block_scatter(v, i, n, nh, nw)
+    ref = bio.block_scatter_plain(v[keep], i[keep], n, nh, nw)
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+    assert bio.scatter_faults(cuda_device) == faults + 1
+    with pytest.raises(ValueError, match="distinct"):
+        bio.block_scatter(v.cpu(), i.cpu(), n, nh, nw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_scatter_kernel_writes_whole_canvas_on_card(cuda_device,
+                                                          dtype):
+    """The canvas comes from torch.empty: when the caching allocator hands
+    back memory that held NaN, every element the kernel leaves is still
+    written (zeros off the named tiles)."""
+    vals, idx, n, nh, nw = _scatter_case("scale1_x1")
+    v, i = _on_card(vals, idx, dtype, cuda_device)
+    th, tw, c = vals.shape[1:]
+    stale = torch.full((n, nh * th, nw * tw, c), float("nan"), dtype=dtype,
+                       device=cuda_device)
+    ptr = stale.data_ptr()
+    del stale
+    out = bio.block_scatter(v, i, n, nh, nw)
+    assert out.data_ptr() == ptr, "the allocator did not reuse the block"
+    assert not bool(torch.isnan(out).any())
+    np.testing.assert_array_equal(
+        _bits(out), _bits(bio.block_scatter_plain(v, i, n, nh, nw)))

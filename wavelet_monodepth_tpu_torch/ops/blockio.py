@@ -18,6 +18,12 @@ raise; on a CPU tensor they run `band_gather_plain` /
 `block_scatter_plain`, which are also what the kernels are checked
 against on the card (bitwise: nothing is summed).
 
+block_scatter's idx rows must be distinct and inside the block grid. On
+the CPU the wrapper checks and raises; on the card the kernel checks
+while it inverts idx, skips the faulty rows and adds them to a per-device
+counter, so a call makes no host sync: `scatter_faults(device)` reads it
+(that read is the sync).
+
 `launches` counts kernel launches per wrapper, both dtypes;
 `launches_bf16` the bfloat16 ones among them. The CPU path never counts.
 """
@@ -39,6 +45,12 @@ launches_bf16 = {"band_gather": 0, "block_scatter": 0}
 
 # the kernels' dtypes and the suffix of their C entry points
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+# device index -> the scatter kernel's fault counter, one int32 on the card
+_scatter_faults: dict[int, Tensor] = {}
+# device index -> the most tiles a scatter's block grid may hold there
+_max_tiles: dict[int, int] = {}
 
 
 def reset_launches() -> None:
@@ -112,19 +124,35 @@ def block_scatter(vals: Tensor, idx: Tensor, n: int, nh: int,
                   nw: int) -> Tensor:
     """Scatter (K, th, tw, C) tiles to a dense (N, nh*th, nw*tw, C) zeros
     canvas at block positions idx (K, 3) = (n, ty, tx). The idx rows must
-    be distinct and inside the (n, nh, nw) grid: the wrapper checks both
-    (a host sync on the card)."""
+    be distinct and inside the (n, nh, nw) grid. On a CPU tensor the
+    wrapper raises otherwise; on the card the kernel writes nothing for a
+    row outside the grid, keeps the last of the rows naming one tile, and
+    counts both in `scatter_faults(device)`, with no host sync."""
     _check_idx(idx, vals)
-    b, ty, tx = (idx[:, j].long() for j in range(3))
-    lin = (b * nh + ty) * nw + tx
-    ok = (((idx >= 0).all() & (b < n).all() & (ty < nh).all()
-           & (tx < nw).all()) if idx.numel() else torch.tensor(True))
-    if not bool(ok) or lin.unique().numel() != lin.numel():
-        raise ValueError("block_scatter needs distinct idx rows inside the "
-                         f"({n}, {nh}, {nw}) block grid")
     if _on_cpu(vals):
+        b, ty, tx = (idx[:, j].long() for j in range(3))
+        lin = (b * nh + ty) * nw + tx
+        ok = bool(((idx >= 0).all() & (b < n).all() & (ty < nh).all()
+                   & (tx < nw).all()) if idx.numel() else True)
+        if not ok or lin.unique().numel() != lin.numel():
+            raise ValueError("block_scatter needs distinct idx rows inside "
+                             f"the ({n}, {nh}, {nw}) block grid")
         return block_scatter_plain(vals, idx, n, nh, nw)
     return _launch_scatter(vals, idx, n, nh, nw)
+
+
+def scatter_faults(device) -> int:
+    """The block_scatter kernel's faults on `device` so far: idx rows
+    outside the block grid, and rows naming a tile an earlier row named.
+    Reading it synchronises with the device; 0 before any launch there."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"scatter_faults counts on a CUDA device, not "
+                         f"{device}")
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    counter = _scatter_faults.get(index)
+    return 0 if counter is None else int(counter.item())
 
 
 def _check_idx(idx: Tensor, like: Tensor) -> None:
@@ -157,8 +185,12 @@ def _kernel_lib():
         for suffix in KERNEL_DTYPES.values():
             for name in ("band_gather", "block_scatter"):
                 fn = getattr(lib, f"{name}_{suffix}")
-                fn.argtypes = [p] * 3 + [i] * 8 + [p]
+                fn.argtypes = ([p] * 3 + [i] * 8 + [p]
+                               if name == "band_gather"
+                               else [p] * 4 + [i] * 8 + [p])
                 fn.restype = i
+        lib.block_scatter_max_tiles.argtypes = [i]
+        lib.block_scatter_max_tiles.restype = i
         lib.blockio_error_string.argtypes = [i]
         lib.blockio_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -207,17 +239,34 @@ def _launch_gather(stack: Tensor, idx: Tensor, window_h: int) -> Tensor:
 
 def _launch_scatter(vals: Tensor, idx: Tensor, n: int, nh: int,
                     nw: int) -> Tensor:
-    """The zeros canvas and the kernel, without block_scatter's idx check
+    """The canvas's allocation and the kernel, which writes all of it
     (chip_smoke.py times this)."""
     idx = _check_kernel_inputs(vals, idx)
     k, th, tw, c = vals.shape
-    out = torch.zeros((n, nh * th, nw * tw, c), dtype=vals.dtype,
+    dev = vals.device.index
+    out = torch.empty((n, nh * th, nw * tw, c), dtype=vals.dtype,
                       device=vals.device)
-    if vals.numel() == 0:
+    if out.numel() == 0:
         return out
-    fn = getattr(_kernel_lib(), f"block_scatter_{KERNEL_DTYPES[vals.dtype]}")
+    if out.numel() >= 2 ** 31:
+        raise ValueError("block IO kernels index with 32-bit offsets")
+    lib = _kernel_lib()
+    if dev not in _max_tiles:
+        got = lib.block_scatter_max_tiles(dev)
+        _raise_on(max(0, -got), "block_scatter_max_tiles")
+        _max_tiles[dev] = got
+    if n * nh * nw > _max_tiles[dev]:
+        raise ValueError(f"block_scatter's ({n}, {nh}, {nw}) block grid "
+                         f"needs {4 * n * nh * nw} bytes of shared memory; "
+                         f"a block of this card has {4 * _max_tiles[dev]}")
+    faults = _scatter_faults.get(dev)
+    if faults is None:
+        faults = _scatter_faults[dev] = torch.zeros(
+            1, dtype=torch.int32, device=vals.device)
+    fn = getattr(lib, f"block_scatter_{KERNEL_DTYPES[vals.dtype]}")
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    _raise_on(fn(vals.data_ptr(), idx.data_ptr(), out.data_ptr(), k, n, nh,
-                 nw, th, tw, c, vals.device.index, stream), "block_scatter")
+    _raise_on(fn(vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                 faults.data_ptr(), k, n, nh, nw, th, tw, c, dev, stream),
+              "block_scatter")
     _count("block_scatter", vals.dtype)
     return out

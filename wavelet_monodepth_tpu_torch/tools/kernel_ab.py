@@ -1,6 +1,6 @@
 """A/B timing of the tile-sparse conv (K1, K4), the banded-warp forward
-(K3) and the fused wave stage (K2) between source trees of this repo, on
-one CUDA card.
+(K3), the fused wave stage (K2) and the tile scatter (K6) between source
+trees of this repo, on one CUDA card.
 
 Each tree runs in its own process, which imports that tree's
 `wavelet_monodepth_tpu_torch` and builds that tree's kernels; the trees
@@ -21,7 +21,17 @@ prints one JSON line:
         beforehand) per scale 3/2/1 at B=16 and B=1 on chip_smoke's stage
         inputs (a seeded random net's decoder under the 10% maskgen
         masks), median of 3 windows of 5 (B=16) or 20 (B=1) calls, and
-        the B=16 sum.
+        the B=16 sum;
+  scatter K6 (`blockio._launch_scatter`: the canvas's allocation and the
+        kernel, with the canvas zeroing where the tree's wrapper does it)
+        over the 6 block_scatter calls recorded from one B=16 compact
+        forward (10% maskgen masks, compact_cap 0.5), in float32 and
+        bf16: 20 runs of the 6 calls queued behind a device-side sleep,
+        median of 3 windows;
+  compact the wall ms (host clock, synchronised) of one B=16 compact
+        forward at compact_cap 1.0, float32 and bf16, median of 3 windows
+        of 10 after 3 warm-ups, and its synchronising calls
+        (torch.cuda.set_sync_debug_mode), those inside block_scatter apart.
 
 Every tree takes its inputs and timer from the chip_smoke.py of the
 tree this script runs from, so another tree needs only its package.
@@ -31,7 +41,8 @@ Usage, from the repo root on a machine with a card (any git-ignored
 directory holds the other tree):
   mkdir -p _archive/parent && git archive HEAD~1 | tar x -C _archive/parent
   python3 wavelet_monodepth_tpu_torch/tools/kernel_ab.py \\
-      _archive/parent . . _archive/parent [--warp-rows 2 4 9]
+      _archive/parent . . _archive/parent [--warp-rows 2 4 9] \\
+      [--parts conv warp fused scatter compact]
 """
 
 from __future__ import annotations
@@ -49,22 +60,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def worker(tree: str, warp_rows) -> dict:
+PARTS = ("conv", "warp", "fused", "scatter", "compact")
+
+
+def worker(tree: str, warp_rows, parts) -> dict:
     """Times `tree`'s kernels in this process (call once per process)."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
-    import torch.nn.functional as F
 
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)   # the running tree's
     spec.loader.exec_module(cs)
     import wavelet_monodepth_tpu_torch as pkg
-    from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
-    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
-    from wavelet_monodepth_tpu_torch.ops import warp
-    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card")
     if not os.path.abspath(pkg.__file__).startswith(tree + os.sep):
@@ -72,9 +81,31 @@ def worker(tree: str, warp_rows) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    out = {"tree": tree, "card": cs.card_line()}
+    if "conv" in parts:
+        out.update(time_conv(cs, dev))
+    if "warp" in parts:
+        out["warp"] = time_warp(cs, dev, warp_rows)
+    if {"fused", "scatter", "compact"} & set(parts):
+        enc, dec = cs.build_models(dev)
+        if "fused" in parts:
+            out["fused_ms"] = time_fused(cs, dev, enc, dec)
+        if {"scatter", "compact"} & set(parts):
+            out.update(time_compact(cs, dev, enc, dec, parts))
+
+    from wavelet_monodepth_tpu_torch.kernels import build
+    out["ptxas"] = {name: [ln.split("info    :")[-1].strip()
+                           for ln in info["ptxas"].splitlines()
+                           if "registers" in ln or "spill" in ln]
+                    for name, info in build.build_info.items()}
+    return out
+
+
+def time_conv(cs, dev) -> dict:
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
     nl = {"elu": tsc.elu, "sigmoid": tsc.sigmoid}
     keys = ("conv3x3_tile_sparse", "conv3x3_tile_sparse_2d")
-
     g = torch.Generator().manual_seed(2)
     convs, sums = [], {}
     for batch in (16, 1):
@@ -94,7 +125,15 @@ def worker(tree: str, warp_rows) -> dict:
                 sums[batch][k] += reps * t[k]["ms_median"]
             convs.append({"conv": conv, "shape": [batch, h, w, cin, cout],
                           **{k: t[k]["ms_median"] for k in keys}})
+    return {"conv": convs, "conv_sum_ms": sums[16],
+            "conv_sum_ms_b1": sums[1]}
 
+
+def time_warp(cs, dev, warp_rows) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from wavelet_monodepth_tpu_torch.ops import warp
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
     n, h, w, c = cs.TRAIN_B, cs.H, cs.W, 3
     g = torch.Generator().manual_seed(21)
     img = torch.rand(n, h, w, c, generator=g).to(dev)
@@ -117,8 +156,16 @@ def worker(tree: str, warp_rows) -> dict:
             if k.startswith("kernel")}
     with torch.no_grad():
         t = cs.time_variants(variants, iters=50, queue_ahead=True)
+    return {"shape": [n, h, w, c], "default_rows": default_rows,
+            "ms_median": {k: v["ms_median"] for k, v in t.items()},
+            "ms_min": {k: v["ms_min"] for k, v in t.items()},
+            "ms_max": {k: v["ms_max"] for k, v in t.items()},
+            "max_abs_err_vs_plain": errs}
 
-    enc, dec = cs.build_models(dev)
+
+def time_fused(cs, dev, enc, dec) -> dict:
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
     fused = {}
     with torch.inference_mode():
         for batch in (16, 1):
@@ -131,21 +178,80 @@ def worker(tree: str, warp_rows) -> dict:
                     iters=5 if batch == 16 else 20)
                 fused[f"b{batch}_scale{i}"] = t_f["kernel"]["ms_median"]
     fused["b16_sum"] = sum(fused[f"b16_scale{i}"] for i in cs.FUSED_SCALES)
+    return fused
 
-    from wavelet_monodepth_tpu_torch.kernels import build
-    ptxas = {name: [ln.split("info    :")[-1].strip()
-                    for ln in info["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, info in build.build_info.items()}
-    return {"tree": tree, "card": cs.card_line(), "ptxas": ptxas,
-            "conv": convs, "conv_sum_ms": sums[16],
-            "conv_sum_ms_b1": sums[1],
-            "warp": {"shape": [n, h, w, c], "default_rows": default_rows,
-                     "ms_median": {k: v["ms_median"] for k, v in t.items()},
-                     "ms_min": {k: v["ms_min"] for k, v in t.items()},
-                     "ms_max": {k: v["ms_max"] for k, v in t.items()},
-                     "max_abs_err_vs_plain": errs},
-            "fused_ms": fused}
+
+def time_compact(cs, dev, enc, dec, parts) -> dict:
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    disp, raw, ratio, _, _ = cs.edge_stage_masks(16)
+    raw = {i: m.to(dev) for i, m in raw.items()}
+    scatter, compact = {}, {}
+    for dtype, (e, d) in ((torch.float32, (enc, dec)),
+                          (torch.bfloat16, cs.bf16_copies(enc, dec))):
+        key = str(dtype).replace("torch.", "")
+        img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev, dtype)
+        if "scatter" in parts:
+            calls = [args for name, args, _ in cs.record_block_io(
+                cs.compact_forward(e, d, img, raw, ratio))
+                if name == "block_scatter"]
+            with torch.inference_mode():
+                t = cs.time_variants({"kernel": lambda: [
+                    bio._launch_scatter(*args) for args in calls]},
+                    iters=20, queue_ahead=True)
+            scatter[key] = t["kernel"]
+            del calls
+        if "compact" in parts:
+            fwd = cs.compact_forward(e, d, img, raw, ratio, cap=1.0)
+            compact[key] = {**wall_ms(fwd), **cs.count_syncs(fwd)}
+    return {k: v for k, v in (("scatter_ms", scatter), ("compact", compact))
+            if v}
+
+
+def wall_ms(run, iters: int = 10, windows: int = 3) -> dict:
+    """Host-clock ms per run() (synchronised at each window's end) after
+    3 warm-ups: median, min and max of the windows."""
+    import time
+    import torch
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3 / iters)
+    return {"ms_median": statistics.median(ms), "ms_min": min(ms),
+            "ms_max": max(ms)}
+
+
+def summarize(mine: list) -> dict:
+    """One tree's runs: the median over them of each timed number."""
+    def med(get):
+        return statistics.median(get(r) for r in mine)
+
+    first, out = mine[0], {"runs": len(mine)}
+    for k in first.get("conv_sum_ms", {}):
+        out[f"{k}_sum_ms"] = med(lambda r: r["conv_sum_ms"][k])
+        out[f"{k}_sum_ms_b1"] = med(lambda r: r["conv_sum_ms_b1"][k])
+    if "warp" in first:
+        out["warp_fwd_ms"] = {k: med(lambda r: r["warp"]["ms_median"][k])
+                              for k in first["warp"]["ms_median"]}
+    if "fused_ms" in first:
+        out["fused_ms"] = {k: med(lambda r: r["fused_ms"][k])
+                           for k in first["fused_ms"]}
+    if "scatter_ms" in first:
+        out["scatter_ms"] = {k: med(lambda r: r["scatter_ms"][k]["ms_median"])
+                             for k in first["scatter_ms"]}
+    if "compact" in first:
+        out["compact_ms"] = {k: med(lambda r: r["compact"][k]["ms_median"])
+                             for k in first["compact"]}
+        out["compact_syncs"] = {k: [r["compact"][k]["syncs"] for r in mine]
+                                for k in first["compact"]}
+    return out
 
 
 def main(argv=None) -> int:
@@ -154,38 +260,28 @@ def main(argv=None) -> int:
     ap.add_argument("--warp-rows", type=int, nargs="*", default=[],
                     help="K3 forward output rows per block to time besides "
                          "the tree's default (trees that take a choice)")
+    ap.add_argument("--parts", nargs="+", choices=PARTS, default=list(PARTS),
+                    help="what to time (default: all)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.trees[0], args.warp_rows)), flush=True)
+        print(json.dumps(worker(args.trees[0], args.warp_rows, args.parts)),
+              flush=True)
         return 0
     runs = []
     for tree in args.trees:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree,
-             "--warp-rows", *map(str, args.warp_rows)],
+             "--warp-rows", *map(str, args.warp_rows),
+             "--parts", *args.parts],
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             sys.stderr.write(proc.stderr)
             raise SystemExit(f"kernel_ab: the run of {tree} failed")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    summary = {}
-    for tree in dict.fromkeys(r["tree"] for r in runs):
-        mine = [r for r in runs if r["tree"] == tree]
-        summary[tree] = {
-            "runs": len(mine),
-            **{f"{k}_sum_ms": statistics.median(r["conv_sum_ms"][k]
-                                                for r in mine)
-               for k in mine[0]["conv_sum_ms"]},
-            **{f"{k}_sum_ms_b1": statistics.median(r["conv_sum_ms_b1"][k]
-                                                   for r in mine)
-               for k in mine[0].get("conv_sum_ms_b1", {})},
-            "warp_fwd_ms": {k: statistics.median(r["warp"]["ms_median"][k]
-                                                 for r in mine)
-                            for k in mine[0]["warp"]["ms_median"]},
-            "fused_ms": {k: statistics.median(r["fused_ms"][k] for r in mine)
-                         for k in mine[0]["fused_ms"]}}
+    summary = {tree: summarize([r for r in runs if r["tree"] == tree])
+               for tree in dict.fromkeys(r["tree"] for r in runs)}
     print(json.dumps({"summary": summary, "card": runs[0]["card"]}),
           flush=True)
     return 0
