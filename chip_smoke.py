@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-Drives wavelet_monodepth_tpu_torch's two paths at full width (KITTI
+Drives wavelet_monodepth_tpu_torch's paths at full width (KITTI
 ResNet18, 640x192, random weights from seeded torch.Generators): serving
 (dense and sparse inference on every sparse backend: the tile-sparse 3x3
-conv kernel, the block IO kernels of the compact backend) and training
-(stereo + depth hints at batch 12 with the banded warp kernel), plus the
-fused wave stage kernel on the serving slice's own stage inputs, in
+conv kernel, the block IO kernels of the compact backend), training
+(stereo + depth hints at batch 12 with the banded warp kernel) and the
+eigen-split evaluation (ResNet18 640x192 and ResNet50 1024x320), plus
+the fused wave stage kernel on the serving slice's own stage inputs, in
 phases; any failure raises and exits non-zero:
 
   1. device: needs CUDA (raises otherwise), turns TF32 off, prints the
@@ -15,7 +16,9 @@ phases; any failure raises and exits non-zero:
      prints each one's ptxas registers and spills;
   3. conv kernel vs plain: both wrappers (stripe flags, K1; 2-D tile
      flags, K4) against the plain PyTorch version at every decoder conv
-     shape of the path at B=1 and B=16, plus all pad modes / epilogues and
+     shape of the path at B=1 and B=16 (ResNet18 at 640x192 and ResNet50
+     at 1024x320, whose skips widen upconv_3_1 / upconv_2_1 to Cin 640 /
+     320), plus all pad modes / epilogues and
      all-zero, all-one and ragged masks; max |err| <= 1e-4;
   4. serving: a reference-layout checkpoint folder and 4 scene PNGs are
      written to a temp dir, and servers built by tools/infer.load_model
@@ -32,6 +35,8 @@ phases; any failure raises and exits non-zero:
      compact_cap 1.0 overflow nowhere, keep xla's op counts and equal xla
      within 1e-4 (sites, capacity: whole tensors; compact: away from its
      image-border ring, COMPACT_RING); at 0.5 their overflow is printed;
+     one ResNet50 1024x320 B=1 request on pallas, pallas2d and compact
+     (compact_cap 1.0) under the same contracts, its launches counted;
   5a. bf16 serving: servers from tools/infer.load_model(--bfloat16) on
      xla, compact, sites and capacity (compact_cap 1.0) answer B=16 and
      B=1 requests at the 10% maskgen point (the bf16 path: K5/K6's bf16
@@ -100,7 +105,20 @@ phases; any failure raises and exits non-zero:
      alone (B=12 and B=16, cuDNN's heuristic vs benchmark); K3
      forward (alone and after its torch coordinate chain) and backward
      per launch against the plain version, F.grid_sample and their
-     bound.
+     bound;
+ 11. eval: a synthetic eigen mount (data/synth.py, 16 test frames at
+     1242x375 JPEG with exact GT) and tools/evaluate_depth.main with
+     --eval_stereo: ResNet18 640x192 on phase 8's checkpoint, (a) dense
+     --post_process (also on the CPU), (b) --use_sparse --threshold 0.1
+     --post_process, (c) --bfloat16 --post_process, (d)
+     --ext_disp_to_eval of (a)'s saved disparities; ResNet50 1024x320 on
+     seeded weights, dense and sparse. Finite rows, (d) == (a), card vs
+     CPU within 1e-4 (disparities and row), (b)'s ops == the decoder's
+     own, (c) within the bf16 bounds of (a); per run the row, density,
+     GFLOPs per image, seconds, and predict_disps' frames/s and host-feed
+     share, the B=12 forward alone (CUDA events, a profile, and under
+     cudnn.benchmark for comparison). The eval runs the masked-dense
+     decoder, as in the JAX package: no kernel of the repo is on it.
 
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
@@ -135,6 +153,21 @@ PATH_CONVS = [
     (48, 160, 64, 32, "elu", (1, "upconv0"), "upconv_1_0"),
     (96, 320, 96, 32, "elu", (1, "upconv1"), "upconv_1_1"),
     (96, 320, 32, 3, "sigmoid", (1, "wavelet"), "waveconv_1_pos/neg"),
+]
+# the same 12 launches for KITTI ResNet50 at 1024x320, the largest
+# published row: upconv_3_1 and upconv_2_1 take ResNet50's wider skips
+# (512 and 256 channels: Cin 128 + 512, 64 + 256)
+R50_H, R50_W = 320, 1024
+PATH_CONVS_R50 = [
+    (20, 64, 256, 128, "elu", (3, "upconv0"), "upconv_3_0"),
+    (40, 128, 640, 128, "elu", (3, "upconv1"), "upconv_3_1"),
+    (40, 128, 128, 3, "sigmoid", (3, "wavelet"), "waveconv_3_pos/neg"),
+    (40, 128, 128, 64, "elu", (2, "upconv0"), "upconv_2_0"),
+    (80, 256, 320, 64, "elu", (2, "upconv1"), "upconv_2_1"),
+    (80, 256, 64, 3, "sigmoid", (2, "wavelet"), "waveconv_2_pos/neg"),
+    (80, 256, 64, 32, "elu", (1, "upconv0"), "upconv_1_0"),
+    (160, 512, 96, 32, "elu", (1, "upconv1"), "upconv_1_1"),
+    (160, 512, 32, 3, "sigmoid", (1, "wavelet"), "waveconv_1_pos/neg"),
 ]
 KERNELS = {
     "conv3x3_tile_sparse": "wavelet_monodepth_tpu/ops/pallas_conv.py:124",
@@ -227,13 +260,13 @@ def phase_build():
 
 # --- phase 3: kernel vs plain ----------------------------------------------
 
-def edge_stage_masks(batch, seed=0):
+def edge_stage_masks(batch, seed=0, h=H, w=W):
     """{scale i: stage_masks(...)} of the 10% maskgen operating point, and
     the raw masks, on the CPU."""
     import torch
     from wavelet_monodepth_tpu_torch.ops import sparse as sp
     from wavelet_monodepth_tpu_torch.utils import maskgen as mg
-    disp = mg.synthetic_depth_scene(batch, H, W, seed=seed)
+    disp = mg.synthetic_depth_scene(batch, h, w, seed=seed)
     raw, ratio, dens = mg.masks_at_density(disp, 0.10)
     raw = {i: torch.from_numpy(m) for i, m in raw.items()}
     return disp, raw, ratio, dens, {i: sp.stage_masks(m)
@@ -267,14 +300,17 @@ def phase_kernel_vs_plain(dev, errs):
         b = (torch.randn(cout, generator=g) * 0.1).to(dev)
         return x, wt, b
 
-    for batch in (1, 16):
-        _, _, _, _, stage = edge_stage_masks(batch)
-        for h, w, cin, cout, epi, (i, mk), conv in PATH_CONVS:
-            m = stage[i][mk].to(dev)
-            require(m.shape == (batch, h, w, 1), (conv, m.shape))
-            check({"conv": conv, "shape": [batch, h, w, cin, cout],
-                   "mask_density": float(m.mean())},
-                  *data(batch, h, w, cin, cout), m, "reflect", epi)
+    for model, size, convs in (("resnet18", (H, W), PATH_CONVS),
+                               ("resnet50", (R50_H, R50_W), PATH_CONVS_R50)):
+        for batch in (1, 16):
+            _, _, _, _, stage = edge_stage_masks(batch, 0, *size)
+            for h, w, cin, cout, epi, (i, mk), conv in convs:
+                m = stage[i][mk].to(dev)
+                require(m.shape == (batch, h, w, 1), (conv, m.shape))
+                check({"model": model, "conv": conv,
+                       "shape": [batch, h, w, cin, cout],
+                       "mask_density": float(m.mean())},
+                      *data(batch, h, w, cin, cout), m, "reflect", epi)
     for cin, cout in ((6, 5), (40, 24)):
         x, w, b = data(2, 20, 72, cin, cout)
         m = (torch.rand(2, 20, 72, 1, generator=g) > 0.9).float().to(dev)
@@ -300,14 +336,14 @@ def phase_kernel_vs_plain(dev, errs):
 
 # --- phase 4: the serving slice --------------------------------------------
 
-def build_models(dev, seed=0):
+def build_models(dev, seed=0, depth=18):
     import torch
     from wavelet_monodepth_tpu_torch.models.decoders_kitti import \
         KittiWaveletDecoder
     from wavelet_monodepth_tpu_torch.models.layers import init_params
     from wavelet_monodepth_tpu_torch.models.resnet import ResnetEncoder
     gen = torch.Generator().manual_seed(seed)
-    enc = init_params(ResnetEncoder(18), gen)
+    enc = init_params(ResnetEncoder(depth), gen)
     dec = init_params(KittiWaveletDecoder(enc.num_ch_enc), gen)
     return enc.to(dev).eval(), dec.to(dev).eval()
 
@@ -527,6 +563,57 @@ def phase_contracts(dev, enc, dec):
                             and not any(overflow.values()),
                             (backend, row))
             emit({**row, "border_ring_px": ring})
+
+
+def phase_contracts_r50(dev):
+    """One KITTI ResNet50 1024x320 B=1 request (seeded weights, the 10%
+    maskgen masks) on pallas, pallas2d and compact (compact_cap 1.0),
+    each held to xla under phase 5's contracts: within TOL (compact away
+    from its ring), xla's op counts, no overflow; the conv kernels at
+    ResNet50's skip widths, 12 launches each."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
+    from wavelet_monodepth_tpu_torch.ops.sparse import compute_density
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+
+    enc, dec = build_models(dev, seed=5, depth=50)
+    disp, raw, ratio, dens, _ = edge_stage_masks(1, 0, R50_H, R50_W)
+    img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
+    mo = {i: m.to(dev) for i, m in raw.items()}
+    want = {"pallas": {"conv3x3_tile_sparse": 12},
+            "pallas2d": {"conv3x3_tile_sparse_2d": 12},
+            "compact": {"band_gather": 18, "block_scatter": 6}}
+    with torch.inference_mode():
+        feats = enc(img)
+        require([f.shape[-1] for f in feats] == [64, 256, 512, 1024, 2048],
+                [tuple(f.shape) for f in feats])
+        ref = dec(feats, thresh_ratio=ratio, mask_override=mo)
+        for backend, launches in want.items():
+            ring = COMPACT_RING if backend == "compact" else dict.fromkeys(
+                range(4), 0)
+            before = {**tsc.launches, **bio.launches}
+            out = dec(feats, thresh_ratio=ratio, mask_override=mo,
+                      use_pallas=backend, compact_cap=1.0)
+            torch.cuda.synchronize()
+            got = {k: v - before[k] for k, v in {**tsc.launches,
+                                                 **bio.launches}.items()
+                   if v != before[k]}
+            err = max(float(interior(out[("disp", s)] - ref[("disp", s)],
+                                     ring[s]).abs().max()) for s in range(4))
+            overflow = {s: int(out[("overflow", s)]) for s in range(3)
+                        if ("overflow", s) in out}
+            ops_equal = all(torch.equal(out[k], ref[k]) for k in ref
+                            if k[0] == "total_ops")
+            row = {"phase": "contract_resnet50", "res": [R50_H, R50_W],
+                   "batch": 1, "backend": backend, "compact_cap": 1.0,
+                   "disp_max_abs_err_vs_xla": err, "border_ring_px": ring,
+                   "total_ops_equal": ops_equal, "overflow": overflow,
+                   "launches": got, "maskgen_density": dens,
+                   "density": float(compute_density(out))}
+            require(err <= TOL and ops_equal and not any(overflow.values())
+                    and got == launches, row)
+            emit(row)
 
 
 def interior(t, r: int):
@@ -1512,7 +1599,7 @@ def phase_train_slice(dev, root: str, log: str, bf16: bool = False):
     require(d.shape == (1, H, W, 1) and bool(torch.isfinite(d).all()),
             ("served disp", tuple(d.shape)))
     emit({"phase": "serve_trained_checkpoint", "disp_mean": float(d.mean())})
-    return launches
+    return launches, folder
 
 
 # --- phase 9: train contracts ------------------------------------------------
@@ -2032,6 +2119,239 @@ def phase_train_times(dev, root: str, batch):
                 "library_ms": bwd["library_grid_sample"]["ms_median"]}}
 
 
+# --- phase 11: the eigen-split evaluation -----------------------------------
+
+EVAL_TEST_FRAMES = 16
+# one eval configuration: (name, encoder depth, feed (h, w), weights)
+EVAL_CONFIGS = (("resnet18", 18, (H, W), "trained"),
+                ("resnet50", 50, (R50_H, R50_W), "seeded"))
+
+
+def eval_argv(root, dev, depth, size):
+    return ["--data_path", root, "--eval_stereo", "--use_wavelets",
+            "--num_layers", str(depth), "--height", str(size[0]),
+            "--width", str(size[1]), "--device", str(dev)]
+
+
+def time_predict(argv, weights, dev, sparse: bool, profiled: bool) -> dict:
+    """frames/s of kitti_eval.predict_disps over the test split (the
+    second of two passes) and the share of its wall time spent in the
+    host feed (JPEG decode, Lanczos resize, batching: the time the
+    batches' generator takes to yield); the forward alone at B=12 on the
+    card, CUDA events (median of 3 windows of 2). profiled: also one
+    profiled call (kernels, device busy time, costliest kernels, ATen ops
+    and convs with their shapes) and the forward under cudnn.benchmark."""
+    t_start = time.perf_counter()
+    import torch
+    from wavelet_monodepth_tpu_torch.data.splits import readlines, \
+        resolve_split_dir
+    from wavelet_monodepth_tpu_torch.eval import kitti_eval
+    from wavelet_monodepth_tpu_torch.tools import evaluate_depth as ed
+
+    # batches of --batch_size (12): without --save_pred_disps, whose
+    # coefficient stacks take one image per batch
+    opts, _ = ed.parse_args([a for a in argv if a != "--save_pred_disps"])
+    files = readlines(os.path.join(resolve_split_dir(
+        opts.eval_split, opts.data_path), "test_files.txt"))
+    forward = ed.load_forward(opts, dev, weights)
+    ds = ed.eval_dataset(opts, files)
+    thresh = opts.threshold if sparse else None
+    for _ in range(2):
+        feed = [0.0]
+
+        def batches():
+            it = ed.eval_batches(opts, ds)
+            while True:
+                t0 = time.perf_counter()
+                b = next(it, None)
+                feed[0] += time.perf_counter() - t0
+                if b is None:
+                    return
+                yield b
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        disps, _ = kitti_eval.predict_disps(
+            forward, batches(), device=dev, post_process=opts.post_process,
+            sparse_threshold=thresh)
+        wall = time.perf_counter() - t0
+    x = torch.from_numpy(next(ed.eval_batches(opts, ds))).to(dev)
+    fwd = time_variants({"forward": lambda: forward(x, thresh)}, iters=2)
+    out = {"frames": int(disps.shape[0]),
+           "frames_per_s": disps.shape[0] / wall, "seconds": wall,
+           "host_feed_share": feed[0] / wall, "forward_batch": x.shape[0],
+           "forward_ms": fwd["forward"]}
+    if profiled:
+        _, by_kernel, by_op, busy, wall_ms = trace_calls(
+            lambda: forward(x, thresh), 1)
+        out["forward_profile"] = {
+            "kernels": sum(v[0] for v in by_kernel.values()),
+            "device_busy_ms": busy / 1e3, "wall_ms": wall_ms,
+            "top_kernels_us": {k[:80]: v[1] for k, v in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1][1])[:3]},
+            "top_ops_us": {k: v[0] for k, v in sorted(
+                by_op.items(), key=lambda kv: -kv[1][0])[:3]}}
+        out["costliest_convs"] = costliest_convs(lambda: forward(x, thresh))
+        # cuDNN's own algorithm search, for comparison only (the CLI
+        # keeps cuDNN's heuristic choice)
+        torch.backends.cudnn.benchmark = True
+        try:
+            out["forward_ms_cudnn_benchmark"] = time_variants(
+                {"forward": lambda: forward(x, thresh)}, iters=2)["forward"]
+        finally:
+            torch.backends.cudnn.benchmark = False
+    out["time_predict_seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def costliest_convs(fn, top: int = 3) -> list:
+    """The `top` cuDNN convolutions of one fn() by device time, with their
+    input shapes (one torch.profiler trace with shapes recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages(group_by_input_shape=True)
+            if e.key == "aten::cudnn_convolution"]
+    rows.sort(key=lambda e: -e.device_time_total)
+    return [{"input_shapes": [list(map(int, s)) for s in e.input_shapes[:2]],
+             "calls": e.count, "device_ms": e.device_time_total / 1e3}
+            for e in rows[:top]]
+
+
+def run_eval(argv, weights, dev, name, mode, sparse=False, timed=True):
+    """evaluate_depth.main on argv (+ --torch_model_path weights), its
+    row checked finite, one {"phase": "eval"} line (with time_predict's
+    numbers when timed); returns main's dict."""
+    import numpy as np
+    from wavelet_monodepth_tpu_torch.tools import evaluate_depth as ed
+    full = argv + (["--torch_model_path", weights] if weights else [])
+    t0 = time.perf_counter()
+    res = ed.main(full)
+    seconds = time.perf_counter() - t0
+    row = list(res["metrics"].values())
+    require(all(np.isfinite(v) for v in row), (name, mode, res["metrics"]))
+    if sparse:
+        require(res["density_mean"] is not None
+                and 0 < res["density_mean"] <= 1
+                and res["total_ops_mean"] > 0, (name, mode, res))
+    line = {"phase": "eval", "config": name, "mode": mode,
+            "device": str(dev), "metrics": res["metrics"],
+            "density": res["density_mean"],
+            "gflops_per_image": (None if res["total_ops_mean"] is None
+                                 else res["total_ops_mean"] / 1e9),
+            "seconds": seconds}
+    if timed:
+        line.update(time_predict(full, weights or argv[
+            argv.index("--load_weights_folder") + 1], dev, sparse,
+            profiled=mode == "dense"))
+    emit({**line, **_card})
+    return res
+
+
+def decoder_ops_mean(argv, weights, dev, thresh) -> float:
+    """Mean ("total_ops", -1) over the test frames and their flips, read
+    from the decoder's own outputs (not through predict_disps)."""
+    import numpy as np
+    import torch
+    from wavelet_monodepth_tpu_torch.data.splits import readlines, \
+        resolve_split_dir
+    from wavelet_monodepth_tpu_torch.tools import evaluate_depth as ed
+    opts, _ = ed.parse_args(argv)
+    files = readlines(os.path.join(resolve_split_dir(
+        opts.eval_split, opts.data_path), "test_files.txt"))
+    forward = ed.load_forward(opts, dev, weights)
+    ops = []
+    for b in ed.eval_batches(opts, ed.eval_dataset(opts, files)):
+        x = torch.from_numpy(b).to(dev)
+        for xi in (x, torch.flip(x, dims=(2,))):
+            ops += forward(xi, thresh)[("total_ops", -1)].cpu().tolist()
+    return float(np.mean(ops))
+
+
+def phase_eval(dev, ckpt18: str, tmp: str) -> None:
+    """tools/evaluate_depth.main on a synthetic eigen mount (16 test
+    frames at 1242x375, data/synth.py): KITTI ResNet18 640x192 on the
+    checkpoint the training phase wrote, (a) dense --post_process, the
+    same on the CPU, (b) --use_sparse --threshold 0.1 --post_process,
+    (c) --bfloat16 --post_process, (d) --ext_disp_to_eval of (a)'s saved
+    disparities; KITTI ResNet50 1024x320 on seeded weights, dense and
+    sparse. Checks: finite rows; (d) == (a) exactly; card vs CPU
+    disparities and rows within TOL; (b)'s ops are the decoder's own; (c)
+    within the bf16 bounds of (a) in sigmoid disparity."""
+    import shutil
+    import numpy as np
+    from wavelet_monodepth_tpu_torch.data import synth
+    from wavelet_monodepth_tpu_torch.tools import torch_import as ti
+
+    t_phase = time.perf_counter()
+    probe = subprocess.run([sys.executable, "-c", "import cv2"],
+                           capture_output=True, timeout=120)
+    root = os.path.join(tmp, "kitti_eigen")
+    t0 = time.perf_counter()
+    synth.fabricate(root, n_train=2, n_val=0, n_test=EVAL_TEST_FRAMES,
+                    progress=False)
+    emit({"phase": "eval_mount", "test_frames": EVAL_TEST_FRAMES,
+          "size": KITTI_FULL, "seconds": time.perf_counter() - t0,
+          "cv2_importable": probe.returncode == 0})
+    split_disps = "disps_eigen_split.npy"
+    for name, depth, size, weights in EVAL_CONFIGS:
+        argv = eval_argv(root, dev, depth, size)
+        sparse = ["--use_sparse", "--threshold", "0.1", "--post_process"]
+        if weights == "seeded":
+            enc, dec = build_models("cpu", seed=9, depth=depth)
+            weights = os.path.join(tmp, name)
+            ti.save_reference_checkpoint(weights, enc, dec, *size)
+            del enc, dec
+            run_eval(argv + ["--post_process"], weights, dev, name, "dense")
+            run_eval(argv + sparse, weights, dev, name, "sparse", True)
+            continue
+        folder = os.path.join(tmp, name)
+        shutil.copytree(ckpt18, folder)
+        saved = os.path.join(folder, split_disps)
+        disps = {}
+        res = {}
+        for mode, extra, run_dev in (
+                ("dense", ["--post_process"], dev),
+                ("dense_cpu", ["--post_process", "--device", "cpu"], "cpu"),
+                ("bf16", ["--post_process", "--bfloat16"], dev)):
+            res[mode] = run_eval(
+                argv + extra + ["--load_weights_folder", folder,
+                                "--save_pred_disps"],
+                None, run_dev, name, mode, timed=mode != "dense_cpu")
+            disps[mode] = np.load(saved)
+            os.replace(saved, os.path.join(folder, f"{mode}.npy"))
+        res["sparse"] = run_eval(argv + sparse + ["--load_weights_folder",
+                                                  folder],
+                                 None, dev, name, "sparse", True)
+        res["ext"] = run_eval(argv + ["--ext_disp_to_eval", os.path.join(
+            folder, "dense.npy")], None, dev, name, "ext_disp", timed=False)
+        row = {k: list(r["metrics"].values()) for k, r in res.items()}
+        cpu_gap = float(np.abs(disps["dense"] - disps["dense_cpu"]).max())
+        row_gap = float(np.abs(np.subtract(row["dense"],
+                                           row["dense_cpu"])).max())
+        # the bf16 bounds hold the sigmoid disparity: predict_disps scales
+        # it to [1 / max_depth, 1 / min_depth] = [0.01, 10]
+        bf16 = np.abs(disps["bf16"] - disps["dense"]) / 9.99
+        ops = decoder_ops_mean(argv + sparse, folder, dev, 0.1)
+        check = {"phase": "eval_checks", "config": name,
+                 "ext_row_equal": row["ext"] == row["dense"],
+                 "card_vs_cpu_disp_max": cpu_gap,
+                 "card_vs_cpu_row_max": row_gap,
+                 "bf16_vs_f32_disp": {"max": float(bf16.max()),
+                                      "mean": float(bf16.mean())},
+                 "sparse_total_ops_mean": res["sparse"]["total_ops_mean"],
+                 "decoder_total_ops_mean": ops}
+        emit(check)
+        require(check["ext_row_equal"] and cpu_gap <= TOL
+                and row_gap <= TOL and bf16.max() <= BF16_DISP_MAX
+                and bf16.mean() <= BF16_DISP_MEAN
+                and res["sparse"]["total_ops_mean"] == ops, check)
+    emit({"phase": "eval_done", "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     dev = phase_device()
     sys.path.insert(0, REPO)
@@ -2045,6 +2365,7 @@ def main():
     launches, enc, dec = phase_slice(dev)
     no_scatter_faults(dev, "slice")
     phase_contracts(dev, enc, dec)
+    phase_contracts_r50(dev)
     no_scatter_faults(dev, "contracts")
     launches.update(phase_bf16_serving(dev, enc, dec))
     no_scatter_faults(dev, "bf16_serving")
@@ -2108,11 +2429,13 @@ def main():
         write_kitti_mount(root, 36, TRAIN_B)
         emit({"phase": "kitti_mount", "pairs": 36, "size": KITTI_FULL,
               "seconds": time.perf_counter() - t0})
-        warp_launches = phase_train_slice(dev, root, os.path.join(tmp, "log"))
+        warp_launches, ckpt = phase_train_slice(dev, root,
+                                                os.path.join(tmp, "log"))
         phase_train_slice(dev, root, os.path.join(tmp, "log_bf16"),
                           bf16=True)
         batch = phase_train_contracts(dev, root)
         warp_ms = phase_train_times(dev, root, batch)
+        phase_eval(dev, ckpt, tmp)
     # ms: one K3 launch at (12, 192, 640, 3) (backward: the training
     # path's, no source-row pass); launches: the train main path's
     kernels += [{

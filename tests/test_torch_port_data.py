@@ -148,9 +148,15 @@ def test_splits_resolve_like_jax(mount):
 
 
 def test_other_layouts_raise(mount):
+    """An unknown layout raises; the odometry and improved-depth layouts
+    (ported with the eval) build, and ds[i] refuses a training dataset."""
     root, lines = mount
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkitti.KittiRawDataset(root, lines, H, W, [0], dataset="kitti_odom")
+    with pytest.raises(ValueError, match="dataset"):
+        tkitti.KittiRawDataset(root, lines, H, W, [0], dataset="kitti_nope")
+    for layout in ("kitti_odom", "kitti_depth"):
+        tkitti.KittiRawDataset(root, lines, H, W, [0], dataset=layout)
+    with pytest.raises(ValueError, match="rng"):
+        tkitti.KittiRawDataset(root, lines, H, W, [0], is_train=True)[0]
 
 
 # --- the training CLI --------------------------------------------------------

@@ -298,7 +298,7 @@ def test_layers_match_jax(backend, masked):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResnetEncoder(50)
+    with pytest.raises(ValueError, match="num_layers"):
+        ResnetEncoder(20)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KittiWaveletDecoder((64, 64, 128, 256, 512), use_polyphase=True)

@@ -73,6 +73,13 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.tools.k2_phases",
     "wavelet_monodepth_tpu_torch.utils.precision",
     "wavelet_monodepth_tpu_torch.tools.bench",
+    "wavelet_monodepth_tpu_torch.ops.metrics",
+    "wavelet_monodepth_tpu_torch.ops.resize",
+    "wavelet_monodepth_tpu_torch.eval.kitti_eval",
+    "wavelet_monodepth_tpu_torch.data.kitti_utils",
+    "wavelet_monodepth_tpu_torch.data.synth",
+    "wavelet_monodepth_tpu_torch.tools.evaluate_depth",
+    "wavelet_monodepth_tpu_torch.tools.export_gt_depth",
 ]
 
 

@@ -1,16 +1,18 @@
-"""KITTI raw input pipeline on the host: NHWC numpy items.
+"""KITTI input pipeline on the host: NHWC numpy items.
 
 Counterpart of `wavelet_monodepth_tpu/data/kitti.py` (`KITTI/datasets/
 mono_dataset.py:44-350`, `kitti_dataset.py:18-118`) for the raw-KITTI
-layout (`dataset="kitti"`): split lines "folder frame side", the Lanczos
-resize pyramid, colour jitter shared by an item's frames, 50% horizontal
-flip, per-scale intrinsics, the stereo extrinsics with the +-0.1 baseline,
-and per-frame depth hints with a zero-mask fallback when the .npy is
-missing. Items use the same tuple keys and values as the JAX package's.
+layout (`dataset="kitti"`), the odometry layout (`"kitti_odom"`) and the
+improved-depth layout (`"kitti_depth"`): split lines "folder frame side",
+GT depth (`get_depth`), the Lanczos resize pyramid, colour jitter shared
+by an item's frames, 50% horizontal flip, per-scale intrinsics, the
+stereo extrinsics with the +-0.1 baseline, and per-frame depth hints with
+a zero-mask fallback when the .npy is missing. Items use the same tuple keys and values as the JAX package's.
 
-The depth hints are resized with `resize_nearest`, which equals OpenCV's
-INTER_NEAREST, so the port does not need cv2. The odometry and improved-
-depth layouts and `get_depth` wait for the eval slice.
+The depth hints and the velodyne GT are resized with `resize_nearest`,
+which equals OpenCV's INTER_NEAREST, so the port does not need cv2.
+`ds[i]` is the evaluation's item: it draws nothing, so it refuses a
+training dataset, whose items take their draws from `item(i, rng)`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 from PIL import Image, ImageEnhance
+
+from .kitti_utils import generate_depth_map
 
 MIN_DEPTH = 0.1
 MAX_DEPTH = 100.0
@@ -96,10 +100,10 @@ class KittiRawDataset:
                  aug_scales: Optional[Sequence[int]] = None,
                  other_frame_scales: Optional[Sequence[int]] = None,
                  device_augment: bool = False):
-        if dataset != "kitti":
-            raise NotImplementedError(
-                f"dataset={dataset!r} is not ported yet (ROADMAP.md, Queue 1 "
-                "item 2: the odometry and improved-depth layouts)")
+        if dataset not in ("kitti", "kitti_odom", "kitti_depth"):
+            raise ValueError(f"unknown dataset={dataset!r}: kitti, "
+                             "kitti_odom or kitti_depth")
+        self.dataset = dataset
         self.data_path = data_path
         self.filenames = list(filenames)
         self.height = height
@@ -123,6 +127,11 @@ class KittiRawDataset:
 
     def get_image_path(self, folder: str, frame_index: int,
                        side: str) -> str:
+        if self.dataset == "kitti_odom":
+            return os.path.join(
+                self.data_path, f"sequences/{int(folder):02d}",
+                f"image_{SIDE_MAP[side]}",
+                f"{frame_index:06d}{self.img_ext}")
         return os.path.join(self.data_path, folder,
                             f"image_0{SIDE_MAP[side]}/data",
                             f"{frame_index:010d}{self.img_ext}")
@@ -135,9 +144,38 @@ class KittiRawDataset:
             img = img.transpose(Image.FLIP_LEFT_RIGHT)
         return img
 
-    def item(self, index: int, rng: random.Random) -> dict:
+    def get_depth(self, folder, frame_index, side, do_flip) -> np.ndarray:
+        """GT depth at the full-res shape: the velodyne projection for the
+        raw layout (`kitti_dataset.py:54-69`), the improved GT's 16-bit
+        PNG / 256 for "kitti_depth" (`kitti_dataset.py:103-118`)."""
+        if self.dataset == "kitti_depth":
+            depth_path = os.path.join(
+                self.data_path, folder,
+                f"proj_depth/groundtruth/image_0{SIDE_MAP[side]}",
+                f"{int(frame_index):010d}.png")
+            depth = np.asarray(Image.open(depth_path).resize(
+                FULL_RES_SHAPE, Image.NEAREST), np.float32) / 256.0
+        else:
+            calib_path = os.path.join(self.data_path, folder.split("/")[0])
+            velo = os.path.join(
+                self.data_path, folder,
+                f"velodyne_points/data/{int(frame_index):010d}.bin")
+            depth = generate_depth_map(calib_path, velo, SIDE_MAP[side])
+            depth = resize_nearest(depth, *FULL_RES_SHAPE)
+        if do_flip:
+            depth = np.fliplr(depth)
+        return depth
+
+    def __getitem__(self, index: int) -> dict:
+        """The evaluation's item (no augmentation, nothing drawn)."""
+        if self.is_train:
+            raise ValueError("a training item draws its augmentation: call "
+                             "item(index, rng)")
+        return self.item(index, None)
+
+    def item(self, index: int, rng: Optional[random.Random]) -> dict:
         """One item; `rng` keys its augmentation draws (the loader passes
-        one per (seed, epoch, index))."""
+        one per (seed, epoch, index)); None only when not training."""
         inputs: dict = {}
         do_aug = self.is_train and rng.random() > 0.5
         do_flip = self.is_train and rng.random() > 0.5

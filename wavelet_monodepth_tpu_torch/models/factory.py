@@ -1,7 +1,7 @@
 """Network factory: counterpart of `wavelet_monodepth_tpu/models/factory.py`
 (`KITTI/networks/network_constructors.py:12-64`) for what the port has,
-ResNet18 and the KITTI wavelet decoder; the rest raises naming the
-ROADMAP item that ports it."""
+the ResNet encoders (18/34/50/101/152) and the KITTI wavelet decoder; the
+rest raises naming the ROADMAP item that ports it."""
 
 from __future__ import annotations
 

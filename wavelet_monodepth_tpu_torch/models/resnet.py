@@ -1,11 +1,15 @@
-"""ResNet18 encoder emitting the 5-level feature pyramid the decoders use.
+"""ResNet encoders (18/34/50/101/152) emitting the 5-level feature pyramid
+the decoders use.
 
-Counterpart of `wavelet_monodepth_tpu/models/resnet.py` (ResNet18 only).
-torchvision's topology and names under the reference's `encoder.` scope,
-so a reference `encoder.pth` loads into it: conv7x7/2 -> [relu feat0] ->
-maxpool3/2 -> layer1..4 at strides 4..32, BN eps 1e-5, input normalised
-as (x - 0.45) / 0.225. Takes NHWC images and returns NHWC features; inside,
-convs run on channels_last NCHW views.
+Counterpart of `wavelet_monodepth_tpu/models/resnet.py` (the multi-image
+pose encoder aside). torchvision's topology and names under the
+reference's `encoder.` scope, so a reference `encoder.pth` loads into it:
+conv7x7/2 -> [relu feat0] -> maxpool3/2 -> layer1..4 at strides 4..32,
+BN eps 1e-5, input normalised as (x - 0.45) / 0.225. ResNet18/34 stack
+BasicBlocks, 50/101/152 Bottlenecks (1x1, 3x3 carrying the stride as in
+torchvision v1.5, 1x1 at 4x width), so `num_ch_enc` is
+(64, 64, 128, 256, 512) or (64, 256, 512, 1024, 2048). Takes NHWC images
+and returns NHWC features; inside, convs run on channels_last NCHW views.
 
 The JAX encoder folds the input normalisation into the stem's BN at
 inference (`resnet.py:107-140`), a TPU micro-optimisation equal to the
@@ -48,16 +52,22 @@ class BatchNorm2d(nn.BatchNorm2d):
                             0.0, self.eps)
 
 
+_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
+           101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+_BOTTLENECK = {18: False, 34: False, 50: True, 101: True, 152: True}
+
+
 def num_ch_enc(num_layers: int) -> tuple[int, ...]:
     _check_layers(num_layers)
+    if _BOTTLENECK[num_layers]:
+        return (64, 256, 512, 1024, 2048)
     return (64, 64, 128, 256, 512)
 
 
 def _check_layers(num_layers: int) -> None:
-    if num_layers != 18:
-        raise NotImplementedError(
-            f"ResNet{num_layers} is not ported yet: the port has ResNet18 "
-            "(ROADMAP.md, Queue 1 item 3: remaining KITTI models)")
+    if num_layers not in _BLOCKS:
+        raise ValueError(f"ResNet{num_layers}: num_layers must be one of "
+                         f"{sorted(_BLOCKS)}")
 
 
 class BasicBlock(nn.Module):
@@ -80,18 +90,46 @@ class BasicBlock(nn.Module):
         return F.relu(y + identity)
 
 
+class Bottleneck(nn.Module):
+    """torchvision's Bottleneck (v1.5: the stride on the 3x3); `cout` is
+    the output width, 4x the inner one."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        width = cout // 4
+        self.conv1 = nn.Conv2d(cin, width, 1, 1, bias=False)
+        self.bn1 = BatchNorm2d(width, eps=1e-5)
+        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm2d(width, eps=1e-5)
+        self.conv3 = nn.Conv2d(width, cout, 1, 1, bias=False)
+        self.bn3 = BatchNorm2d(cout, eps=1e-5)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, cout, 1, stride, bias=False),
+                BatchNorm2d(cout, eps=1e-5))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + identity)
+
+
 class _ResNet(nn.Module):
     """torchvision's ResNet body without the classifier."""
 
-    def __init__(self, blocks=(2, 2, 2, 2)):
+    def __init__(self, num_layers: int):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64, eps=1e-5)
-        chans = (64, 64, 128, 256, 512)
-        for stage, nb in enumerate(blocks):
-            layer = [BasicBlock(chans[stage] if b == 0 else chans[stage + 1],
-                                chans[stage + 1],
-                                (1 if stage == 0 else 2) if b == 0 else 1)
+        block = Bottleneck if _BOTTLENECK[num_layers] else BasicBlock
+        chans = num_ch_enc(num_layers)
+        for stage, nb in enumerate(_BLOCKS[num_layers]):
+            layer = [block(chans[stage] if b == 0 else chans[stage + 1],
+                           chans[stage + 1],
+                           (1 if stage == 0 else 2) if b == 0 else 1)
                      for b in range(nb)]
             setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
 
@@ -102,9 +140,8 @@ class ResnetEncoder(nn.Module):
 
     def __init__(self, num_layers: int = 18):
         super().__init__()
-        _check_layers(num_layers)
         self.num_ch_enc = num_ch_enc(num_layers)
-        self.encoder = _ResNet()
+        self.encoder = _ResNet(num_layers)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         x = (x - 0.45) / 0.225

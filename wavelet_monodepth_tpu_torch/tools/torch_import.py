@@ -62,30 +62,35 @@ def _sub(tree, *keys):
 
 
 def _encoder_state(variables: dict) -> dict:
-    """ResNet18 encoder variables {params, batch_stats} -> torchvision
-    names under the reference's `encoder.` scope (parameters only when
-    there are no batch_stats)."""
+    """ResNet encoder variables {params, batch_stats} of any depth ->
+    torchvision names under the reference's `encoder.` scope (parameters
+    only when there are no batch_stats): conv1..conv2 (BasicBlock) or
+    conv1..conv3 (Bottleneck) per block, then its downsample."""
     params = variables["params"]
     stats = variables.get("batch_stats")
     sd: dict = {}
     sd["encoder.conv1.weight"] = _conv_w(params["stem"]["conv"]["kernel"])
     _take_bn(sd, "encoder.bn1", params["stem"]["bn"],
              _sub(stats, "stem", "bn"))
-    for li in range(4):
-        for b in range(2):
-            t = f"encoder.layer{li + 1}.{b}."
-            name = f"layer{li + 1}_{b}"
-            for k in (1, 2):
+    for li in range(1, 5):
+        b = 0
+        while f"layer{li}_{b}" in params:
+            t = f"encoder.layer{li}.{b}."
+            name = f"layer{li}_{b}"
+            k = 1
+            while f"conv{k}" in params[name]:
                 node = params[name][f"conv{k}"]
                 sd[f"{t}conv{k}.weight"] = _conv_w(node["conv"]["kernel"])
                 _take_bn(sd, f"{t}bn{k}", node["bn"],
                          _sub(stats, name, f"conv{k}", "bn"))
+                k += 1
             if "downsample" in params[name]:
                 node = params[name]["downsample"]
                 sd[f"{t}downsample.0.weight"] = _conv_w(
                     node["conv"]["kernel"])
                 _take_bn(sd, f"{t}downsample.1", node["bn"],
                          _sub(stats, name, "downsample", "bn"))
+            b += 1
     return sd
 
 
@@ -115,9 +120,11 @@ def _decoder_state(variables: dict) -> dict:
     return sd
 
 
-def state_dicts_from_jax(enc_vars: dict, dec_vars: dict):
-    """(encoder state dict, decoder state dict) from JAX variable trees."""
-    return _encoder_state(enc_vars), _decoder_state(dec_vars)
+def state_dicts_from_jax(enc_vars: dict, dec_vars: dict | None):
+    """(encoder state dict, decoder state dict) from JAX variable trees;
+    the decoder's is None without dec_vars."""
+    return (_encoder_state(enc_vars),
+            None if dec_vars is None else _decoder_state(dec_vars))
 
 
 def param_trees_from_jax(enc_tree: dict, dec_tree: dict) -> dict:
