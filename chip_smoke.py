@@ -5,10 +5,11 @@ Drives wavelet_monodepth_tpu_torch's paths at full width (KITTI
 ResNet18, 640x192, random weights from seeded torch.Generators): serving
 (dense and sparse inference on every sparse backend: the tile-sparse 3x3
 conv kernel, the block IO kernels of the compact backend), training
-(stereo + depth hints at batch 12 with the banded warp kernel) and the
-eigen-split evaluation (ResNet18 640x192 and ResNet50 1024x320), plus
-the fused wave stage kernel on the serving slice's own stage inputs, in
-phases; any failure raises and exits non-zero:
+(stereo + depth hints at batch 12 with the banded warp kernel), the
+eigen-split evaluation (ResNet18 640x192 and ResNet50 1024x320) and the
+NYUv2 serving and evaluation path (DenseNet161 + the wavelet decoder at
+640x480), plus the fused wave stage kernel on the serving slice's own
+stage inputs, in phases; any failure raises and exits non-zero:
 
   1. device: needs CUDA (raises otherwise), turns TF32 off, prints the
      card's name and power limit;
@@ -118,11 +119,37 @@ phases; any failure raises and exits non-zero:
      GFLOPs per image, seconds, and predict_disps' frames/s and host-feed
      share, the B=12 forward alone (CUDA events, a profile, and under
      cudnn.benchmark for comparison). The eval runs the masked-dense
-     decoder, as in the JAX package: no kernel of the repo is on it.
+     decoder, as in the JAX package: no kernel of the repo is on it;
+ 12. nyu: 16 synthetic labeled frames (data/synth.render_scene's view
+     resized to 640x480, its true depth x0.25, GT edges from
+     nyu_eval.canny) and a seeded DenseNet161 + NyuDecoderWave written as
+     a reference model.pth, read by tools/evaluate_nyu.load_forward;
+     nyu_eval.evaluate (batches of 8, edges) (a) dense, (b) dense on the
+     CPU over 2 frames, (c) sparse at threshold 0.05 on xla (JAX's eval
+     backend), (d) bf16 dense: one {"phase": "nyu_eval"} line each (the
+     eight-metric row, frames/s, the predict and host-edge shares, the
+     B=8 forward alone, density and GFLOPs when sparse). Checks: card vs
+     CPU depths and six-metric row within 1e-4 (the edge metrics within
+     1e-3 px), bf16 finite with a mean gap under 1% of the mean f32
+     depth, thresh -1 sparse == dense bitwise; one B=8 and one B=1 sparse
+     request on pallas, pallas2d and capacity (capacity_ratio 1.0) equal
+     to xla within 1e-4 of each tensor's scale, with xla's masks and op
+     counts and JAX's launches per forward (pallas: K1 x4; pallas2d: K4
+     x2 + K1 x2; capacity: K1 x2), counted from 0 around each request;
+     K1/K4 vs plain at the four NYU conv shapes (up2.convA 744->276 and
+     up3.convA 372->138, reflect + LeakyReLU 0.2; the wave heads
+     276->3 and 138->3, zero pad) on the requests' masks and on 5%
+     maskgen base masks, B=8 and B=1, <= 1e-4. Times: those convs per
+     kernel vs plain vs cuDNN with their bounds, the B=8 and B=1 forward
+     dense and sparse on every backend at the 5% masks, MobileNetV2 +
+     NyuDecoderWave at B=8, profiles of the B=8 and B=1 dense and the B=8
+     pallas2d forwards (costliest kernels, ATen ops and convs), and the
+     B=8 dense forward under cudnn.benchmark for comparison.
 
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
-summary and the last is {"ok": true, "device": {...}}.
+summary (K1/K4 with the NYU path's `launches_nyu` and `*_nyu` B=8 sums)
+and the last is {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
 """
@@ -2352,6 +2379,525 @@ def phase_eval(dev, ckpt18: str, tmp: str) -> None:
     emit({"phase": "eval_done", "seconds": time.perf_counter() - t_phase})
 
 
+# --- phase 12: NYUv2 serving and evaluation ----------------------------------
+
+NYU_H, NYU_W = 480, 640
+NYU_FRAMES = 16
+NYU_B = 8
+NYU_THRESH = 0.05
+NYU_DENSITY = 0.05           # the published NYU operating point
+# (H, W, Cin, Cout, epilogue, pad, (sparse scale, mask), conv) of the
+# tile-sparse convs of one NYU sparse forward (DenseNet161, 640x480): each
+# sparse scale's UpBlock convA and wave head
+NYU_CONVS = [
+    (60, 80, 744, 276, "leaky02", "reflect", (1, "wave"), "up2.convA"),
+    (60, 80, 276, 3, "none", "zero", (1, "wavelet"), "wave2"),
+    (120, 160, 372, 138, "leaky02", "reflect", (0, "wave"), "up3.convA"),
+    (120, 160, 138, 3, "none", "zero", (0, "wavelet"), "wave3"),
+]
+# K1 / K4 launches per NYU sparse forward, JAX's routing: the convAs take
+# the backend asked for, the wave heads K1 on every one of them
+NYU_LAUNCHES = {
+    "pallas": {"conv3x3_tile_sparse": 4, "conv3x3_tile_sparse_2d": 0},
+    "pallas2d": {"conv3x3_tile_sparse": 2, "conv3x3_tile_sparse_2d": 2},
+    "capacity": {"conv3x3_tile_sparse": 2, "conv3x3_tile_sparse_2d": 0},
+}
+# the convs each kernel runs per sparse forward on its own backend
+NYU_KERNEL_CONVS = {"conv3x3_tile_sparse": ("up2.convA", "wave2",
+                                            "up3.convA", "wave3"),
+                    "conv3x3_tile_sparse_2d": ("up2.convA", "up3.convA")}
+# the edge metrics threshold Canny maps: predictions ~1e-6 m apart flip a
+# few of ~10k edge pixels and move eps by up to ~1e-3 px
+NYU_EDGE_TOL = 1e-3
+NYU_ROW = ("abs_rel", "rmse", "log10", "a1", "a2", "a3", "eps_acc",
+           "eps_comp")
+
+
+def nyu_frames(n: int, seed: int = 0):
+    """n synthetic labeled frames with exact GT: the left view and true
+    depth of data/synth.render_scene (KITTI's 1242x375), the view resized
+    to 640x480 (bilinear, ops/resize.py), the depth x0.25 into NYU's
+    range by nearest index, as the JAX package's fabricate_nyu does; GT
+    edges from nyu_eval.canny on the normalised GT depth."""
+    import numpy as np
+    from wavelet_monodepth_tpu_torch.data import synth
+    from wavelet_monodepth_tpu_torch.eval import nyu_eval
+    from wavelet_monodepth_tpu_torch.ops.resize import resize_linear
+    rng = np.random.RandomState(seed)
+    rgb = np.empty((n, NYU_H, NYU_W, 3), np.uint8)
+    depth = np.empty((n, NYU_H, NYU_W), np.float32)
+    for i in range(n):
+        left, _, d, _ = synth.render_scene(rng)
+        img = resize_linear(left.astype(np.float32), NYU_W, NYU_H)
+        rgb[i] = np.clip(np.rint(img), 0, 255).astype(np.uint8)
+        yi = np.arange(NYU_H) * d.shape[0] // NYU_H
+        xi = np.arange(NYU_W) * d.shape[1] // NYU_W
+        depth[i] = 0.25 * d[yi][:, xi]
+    edges = np.stack([nyu_eval.canny((d - d.min()) / (d.max() - d.min()))
+                      for d in depth])
+    return rgb, depth, edges
+
+
+def nyu_model(path: str, seed: int = 10) -> None:
+    """A seeded DenseNet161 + NyuDecoderWave written as a reference NYU
+    model.pth, its heads rescaled so the raw output looks like depth in
+    cm: the LL head's weights x3000 and bias +300 give ~1-3.5 m with a
+    metre of structure from the image, the wave heads' weights x250 give
+    partial masks at threshold 0.05 (a random init gives ~0.01 cm of
+    structure, all-active masks and, in bf16, a constant depth)."""
+    import torch
+    from wavelet_monodepth_tpu_torch.models.decoders_nyu import \
+        NyuDecoderWave
+    from wavelet_monodepth_tpu_torch.models.densenet import \
+        DenseNet161Encoder
+    from wavelet_monodepth_tpu_torch.models.layers import init_params
+    from wavelet_monodepth_tpu_torch.tools import torch_import as ti
+    g = torch.Generator().manual_seed(seed)
+    enc = init_params(DenseNet161Encoder(), g)
+    dec = init_params(NyuDecoderWave(enc.num_ch_enc), g)
+    with torch.no_grad():
+        dec.wave1_ll.conv.weight.mul_(3000.0)
+        dec.wave1_ll.conv.bias.add_(300.0)
+        for head in (dec.wave1, dec.wave2, dec.wave3):
+            head.conv.weight.mul_(250.0)
+    ti.save_nyu_model_pth(path, enc, dec)
+
+
+def nyu_forward(model: str, dev, backend=False, bf16: bool = False,
+                capacity_ratio: float = 0.5):
+    """tools/evaluate_nyu.load_forward on the model.pth, --use_wavelets
+    --use_sparse (dense without a threshold)."""
+    from wavelet_monodepth_tpu_torch.tools import evaluate_nyu as ev
+    argv = ["--data_path", "-", "--splits_path", "-", "--use_wavelets",
+            "--use_sparse", "--device", str(dev)] + (
+                ["--bfloat16"] if bf16 else [])
+    return ev.load_forward(ev.nyu_options(ev.parse_args(argv)), dev, model,
+                           use_pallas=backend,
+                           capacity_ratio=capacity_ratio)
+
+
+def nyu_input(rgb, dev):
+    """predict_depth_batch's network input of uint8 frames: border-crop 16,
+    /255 on the card, 640x480 align_corners resize."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops.image import resize_bilinear
+    x = torch.from_numpy(rgb[:, 16:-16, 16:-16].copy()).to(dev)
+    return resize_bilinear(x.float() / 255.0, NYU_H, NYU_W,
+                           align_corners=True)
+
+
+def nyu_stage_masks(raw: dict) -> dict:
+    """{scale s: {"wave": convA's out mask, "wavelet": the head's}} from
+    the raw masks {s: (N, h, w, 1)}, through the decoder's dilations."""
+    from wavelet_monodepth_tpu_torch.ops import sparse as sp
+    from wavelet_monodepth_tpu_torch.ops.image import upsample_nearest2x
+    out = {}
+    for s, m in raw.items():
+        um = upsample_nearest2x(m)
+        out[s] = {"wave": sp.dilate_mask(um, 3), "wavelet": um}
+    return out
+
+
+def nyu_raw_masks(batch: int, seed: int = 0):
+    """Raw masks {s: (N, h, w, 1)} at the NYU decoder's sparse scales
+    (s=1 at 30x40, s=0 at 60x80) from maskgen scenes at 240x320 (the
+    decoder's output size), their threshold bisected so the base masks'
+    density over both sparse scales (area-weighted as their wavelet
+    masks, 60x80 and 120x160) is 5%; and that density."""
+    import torch
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    disp = mg.synthetic_depth_scene(batch, NYU_H // 2, NYU_W // 2, seed)
+
+    def masks(r):     # maskgen's stage i masks are H / 2^(i+1)
+        m = mg.dwt_stage_masks(disp, r, scales=(1, 2))
+        return {1: torch.from_numpy(m[2]), 0: torch.from_numpy(m[1])}
+
+    def density(m):
+        return (4800.0 * float(m[1].mean())
+                + 19200.0 * float(m[0].mean())) / 24000.0
+    lo, hi = 1e-4, 1.0
+    for _ in range(40):
+        mid = (lo * hi) ** 0.5
+        m = masks(mid)
+        d = density(m)
+        if abs(d - NYU_DENSITY) < 0.002:
+            break
+        lo, hi = (mid, hi) if d > NYU_DENSITY else (lo, mid)
+    return m, d
+
+
+def nyu_gap(ours: dict, ref: dict) -> float:
+    """Largest |ours - ref| over the float outputs, each relative to
+    max(1, max |ref|) of its tensor (the raw outputs are in cm, ~300)."""
+    gap = 0.0
+    for k, r in ref.items():
+        if k[0] in ("wavelet_mask", "total_ops"):
+            continue
+        scale = max(1.0, float(r.abs().max()))
+        gap = max(gap, float((ours[k] - r).abs().max()) / scale)
+    return gap
+
+
+def run_nyu_eval(forward, frames, dev, mode: str, thresh=None,
+                 n=None, timed: bool = True) -> dict:
+    """nyu_eval.evaluate at batch_size 8 with edges over the first n
+    frames (all by default); one {"phase": "nyu_eval"} line with the row,
+    frames/s, the host's shares of the wall time and, timed, the B=8
+    forward alone (CUDA events). Returns the row."""
+    import numpy as np
+    import torch
+    from wavelet_monodepth_tpu_torch.eval import nyu_eval
+    from wavelet_monodepth_tpu_torch.ops.sparse import compute_density
+    rgb, depth, edges = (a[:n] for a in frames)
+    stats = {"density": [], "total_ops": []}
+
+    def recorded(x, t=None):
+        out = forward(x, t)
+        if t is not None:
+            stats["density"] += compute_density(
+                out, per_image=True).cpu().tolist()
+            stats["total_ops"] += out[("total_ops", -1)].cpu().tolist()
+        return out
+    forward(nyu_input(rgb[:1], dev), thresh)          # warm-up
+    timings = {}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    row = nyu_eval.evaluate(recorded, rgb, depth, edges_gt=edges,
+                            sparse_threshold=thresh, batch_size=NYU_B,
+                            device=dev, timings=timings)
+    wall = time.perf_counter() - t0
+    require(all(np.isfinite(row[k]) for k in NYU_ROW), (mode, row))
+    line = {"phase": "nyu_eval", "mode": mode, "device": str(dev),
+            "frames": int(rgb.shape[0]), "threshold": thresh,
+            "row": {k: float(row[k]) for k in NYU_ROW},
+            "frames_per_s": rgb.shape[0] / wall, "seconds": wall,
+            "predict_share": timings["predict_s"] / wall,
+            "host_edges_share": timings["edges_s"] / wall}
+    if thresh is not None:
+        line.update(density_mean=float(np.mean(stats["density"])),
+                    gflops_per_image=float(np.mean(stats["total_ops"]))
+                    / 1e9)
+    if timed:
+        x = nyu_input(rgb[:NYU_B], dev)
+        line["forward_b8"] = time_variants(
+            {"forward": lambda: forward(x, thresh)}, iters=2)["forward"]
+    emit({**line, **_card})
+    return row
+
+
+def nyu_kernel_checks(dev, errs, raw_by_batch: dict, masks: str) -> None:
+    """K1 and K4 against the plain version at the four NYU conv shapes,
+    on the stage masks of raw_by_batch {batch: raw masks}; <= TOL."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
+    nl = {"none": None, "leaky02": tsc.leaky_relu_02}
+    g = torch.Generator().manual_seed(3)
+    for batch, raw in raw_by_batch.items():
+        stage = nyu_stage_masks({s: m.to(dev) for s, m in raw.items()})
+        for h, w, cin, cout, epi, pad, (s, mk), conv in NYU_CONVS:
+            m = stage[s][mk].float().contiguous()
+            require(m.shape == (batch, h, w, 1), (conv, tuple(m.shape)))
+            x = torch.randn(batch, h, w, cin, generator=g).to(dev)
+            wt = (torch.randn(3, 3, cin, cout, generator=g)
+                  * (2.0 / (9 * cin)) ** 0.5).to(dev)
+            b = (torch.randn(cout, generator=g) * 0.1).to(dev)
+            ref = tsc.conv3x3_masked_plain(x, wt, b, m, pad, nl[epi])
+            for key in KERNELS:
+                out = getattr(tsc, key)(x, wt, b, m, pad, nl[epi])
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                errs[key] = max(errs[key], err)
+                emit({"phase": "kernel_vs_plain", "kernel": key,
+                      "model": "nyu_densenet161", "conv": conv,
+                      "masks": masks, "shape": [batch, h, w, cin, cout],
+                      "pad": pad, "nonlin": epi,
+                      "mask_density": float(m.mean()), "max_abs_err": err})
+                require(err <= TOL, (key, conv, batch, masks, err))
+
+
+def nyu_conv_times(dev, raw_by_batch: dict) -> dict:
+    """Per NYU conv shape at B=8 and B=1 on the 5% masks: K1, K4, the
+    plain version and cuDNN's dense F.conv2d (CUDA events, median of 3
+    interleaved windows), with the conv's bound. Returns, per kernel, the
+    B=8 sums over the convs it runs per sparse forward."""
+    import torch
+    import torch.nn.functional as F
+    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
+    nl = {"none": None, "leaky02": tsc.leaky_relu_02}
+    g = torch.Generator().manual_seed(4)
+    sums = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "bound_ms_f32_cuda_cores": 0.0,
+                "bound_by": {"operations": 0.0, "bytes": 0.0}}
+            for k in KERNELS}
+    for batch, raw in raw_by_batch.items():
+        stage = nyu_stage_masks({s: m.to(dev) for s, m in raw.items()})
+        for h, w, cin, cout, epi, pad, (s, mk), conv in NYU_CONVS:
+            m = stage[s][mk].float().contiguous()
+            x = torch.randn(batch, h, w, cin, generator=g).to(dev)
+            wt = (torch.randn(3, 3, cin, cout, generator=g) * 0.05).to(dev)
+            b = torch.zeros(cout, device=dev)
+            x_nchw = x.permute(0, 3, 1, 2).contiguous()
+            w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+            with torch.inference_mode():
+                t = time_variants({
+                    "plain": lambda: tsc.conv3x3_masked_plain(
+                        x, wt, b, m, pad, nl[epi]),
+                    **{k: (lambda k=k: getattr(tsc, k)(x, wt, b, m, pad,
+                                                       nl[epi]))
+                       for k in KERNELS},
+                    "library_conv2d": lambda: F.conv2d(x_nchw, w_oihw, b,
+                                                       padding=1),
+                }, iters=20)
+            bound, by, bound_f32 = conv_bound_ms(m, cin, cout)
+            work = granule_work(m, cin, cout)
+            for k in KERNELS:
+                work[k]["achieved_tflops"] = (work[k]["active_flops"]
+                                              / t[k]["ms_median"] / 1e9)
+                if batch == NYU_B and conv in NYU_KERNEL_CONVS[k]:
+                    sums[k]["ms"] += t[k]["ms_median"]
+                    sums[k]["plain_ms"] += t["plain"]["ms_median"]
+                    sums[k]["bound_ms"] += bound
+                    sums[k]["bound_ms_f32_cuda_cores"] += bound_f32
+                    sums[k]["library_ms"] += t["library_conv2d"]["ms_median"]
+                    sums[k]["bound_by"][by] += bound
+            emit({"phase": "time_conv", "model": "nyu_densenet161",
+                  "conv": conv, "batch": batch, "shape": [h, w, cin, cout],
+                  "mask_density": float(m.mean()),
+                  "masked_flops": 2.0 * 9 * cin * cout * float(m.sum()),
+                  "bound_ms": bound, "bound_by": by,
+                  "bound_ms_f32_cuda_cores": bound_f32, "granules": work,
+                  **t, **_card})
+    for k in KERNELS:
+        sums[k]["bound_by"] = max(sums[k]["bound_by"],
+                                  key=sums[k]["bound_by"].get)
+    return sums
+
+
+def nyu_requests(dev, model: str, x8, errs) -> dict:
+    """One B=8 and one B=1 sparse request (threshold 0.05, the decoder's
+    own masks) on pallas, pallas2d and capacity (capacity_ratio 1.0:
+    nothing dropped; its overflow at JAX's 0.5 is printed), each against
+    xla: the masks and op counts equal, the outputs within TOL relative
+    to max(1, max |xla|) of each tensor, and JAX's K1 / K4 launches per
+    forward, counted from 0 around the request. Returns the launches of
+    these requests (the NYU serving path's) and the requests' raw masks
+    by batch for the kernel checks."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
+    from wavelet_monodepth_tpu_torch.ops.capacity import \
+        conv_capacity_overflow
+    xla = nyu_forward(model, dev)
+    fwds = {b: nyu_forward(model, dev, b, capacity_ratio=1.0
+                           if b == "capacity" else 0.5)
+            for b in NYU_LAUNCHES}
+    launches = {k: 0 for k in KERNELS}
+    raws = {}
+    for batch in (NYU_B, 1):
+        x = x8[:batch]
+        ref = xla(x, NYU_THRESH)
+        raws[batch] = {s: ref[("wavelet_mask", s)][:, ::2, ::2].cpu()
+                       for s in (1, 0)}
+        stage = nyu_stage_masks({s: m.to(dev) for s, m in
+                                 raws[batch].items()})
+        for backend, fwd in fwds.items():
+            tsc.reset_launches()
+            out = fwd(x, NYU_THRESH)
+            torch.cuda.synchronize()
+            got = dict(tsc.launches)
+            for k in KERNELS:
+                launches[k] += got[k]
+            gap = nyu_gap(out, ref)
+            masks_equal = all(torch.equal(out[k], ref[k]) for k in ref
+                              if k[0] == "wavelet_mask")
+            ops_equal = torch.equal(out[("total_ops", -1)],
+                                    ref[("total_ops", -1)])
+            row = {"phase": "nyu_request", "backend": backend,
+                   "batch": batch, "launches": got,
+                   "expected_launches": NYU_LAUNCHES[backend],
+                   "gap_vs_xla_rel": gap, "masks_equal": masks_equal,
+                   "total_ops_equal": ops_equal,
+                   "density": [float(ref[("wavelet_mask", s)].mean())
+                               for s in (1, 0)]}
+            if backend == "capacity":
+                row["overflow_at_0.5"] = {
+                    s: int(conv_capacity_overflow(stage[s]["wave"]))
+                    for s in (1, 0)}
+            emit(row)
+            require(got == NYU_LAUNCHES[backend] and masks_equal
+                    and ops_equal and gap <= TOL, row)
+        del ref
+    return launches, raws
+
+
+def nyu_forward_times(dev, model: str, x8, raw5: dict) -> None:
+    """ms per B=8 and B=1 forward, dense and sparse on xla / pallas /
+    pallas2d / capacity, the sparse scales' masks replaced by the 5%
+    maskgen masks (CUDA events, median of 3 interleaved windows); then
+    MobileNetV2 + NyuDecoderWave's B=8 dense and sparse (xla) forward."""
+    import torch
+    from wavelet_monodepth_tpu_torch.models.decoders_nyu import \
+        NyuDecoderWave
+    from wavelet_monodepth_tpu_torch.models.layers import init_params
+    from wavelet_monodepth_tpu_torch.models.mobilenetv2 import \
+        MobileNetV2Encoder
+    fwds = {b: nyu_forward(model, dev, b) for b in
+            (False, "pallas", "pallas2d", "capacity")}
+    for batch in (NYU_B, 1):
+        x = x8[:batch]
+        mo = {s: raw5[batch][s].to(dev) for s in (1, 0)}
+        variants = {"dense": lambda: fwds[False](x, None)}
+        for b, f in fwds.items():
+            variants[f"sparse_{b or 'xla'}"] = (
+                lambda f=f: f(x, NYU_THRESH, mask_override=mo))
+        t = time_variants(variants, iters=3 if batch == NYU_B else 10)
+        emit({"phase": "nyu_time_forward", "model": "densenet161",
+              "batch": batch, "res": [NYU_H, NYU_W], "dtype": "float32",
+              "mask": f"maskgen {NYU_DENSITY:.0%} density", **t,
+              "fps_median": {k: batch * 1e3 / v["ms_median"]
+                             for k, v in t.items()}, **_card})
+    del fwds
+    g = torch.Generator().manual_seed(12)
+    enc = init_params(MobileNetV2Encoder(True), g).to(dev).eval()
+    dec = init_params(NyuDecoderWave(enc.num_ch_enc), g).to(dev).eval()
+    mo = {s: raw5[NYU_B][s].to(dev) for s in (1, 0)}
+    with torch.inference_mode():
+        t = time_variants({
+            "dense": lambda: dec(enc(x8)),
+            "sparse_xla": lambda: dec(enc(x8), thresh_ratio=NYU_THRESH,
+                                      mask_override=mo)}, iters=5)
+    emit({"phase": "nyu_time_forward", "model": "mobilenetv2",
+          "batch": NYU_B, "res": [NYU_H, NYU_W], "dtype": "float32",
+          "mask": f"maskgen {NYU_DENSITY:.0%} density", **t, **_card})
+
+
+def nyu_profile(fn, label: str) -> None:
+    """One fn() under torch.profiler: kernels, device busy time and idle
+    share, the costliest kernels and ATen ops, and the costliest convs
+    with their shapes."""
+    import torch
+    with torch.inference_mode():
+        _, by_kernel, by_op, busy, wall_ms = trace_calls(fn, 1)
+        convs = costliest_convs(fn, 5)
+    emit({"phase": "nyu_profile_forward", "forward": label,
+          "kernels": sum(v[0] for v in by_kernel.values()),
+          "device_busy_ms": busy / 1e3, "wall_ms": wall_ms,
+          "idle_share": 1.0 - busy / 1e3 / wall_ms,
+          "top_kernels_us": {k[:80]: v[1] for k, v in sorted(
+              by_kernel.items(), key=lambda kv: -kv[1][1])[:5]},
+          "top_aten_ops_us": {k: v[0] for k, v in sorted(
+              ((k, v) for k, v in by_op.items() if k.startswith("aten::")),
+              key=lambda kv: -kv[1][0])[:5]},
+          "costliest_convs": convs, **_card})
+
+
+def phase_nyu(dev, errs, tmp: str) -> dict:
+    """The NYUv2 slice on the card (module docstring, phase 12). Returns
+    {kernel: {"launches_nyu": ..., "*_nyu": B=8 sums}} for the kernels
+    line."""
+    import numpy as np
+    import torch
+    from wavelet_monodepth_tpu_torch.eval import nyu_eval
+
+    t_phase = time.perf_counter()
+    frames = nyu_frames(NYU_FRAMES)
+    model = os.path.join(tmp, "nyu", "model.pth")
+    nyu_model(model)
+    emit({"phase": "nyu_mount", "frames": NYU_FRAMES, "size": [NYU_H, NYU_W],
+          "gt_depth_range_m": [float(frames[1].min()),
+                               float(frames[1].max())],
+          "seconds": time.perf_counter() - t_phase})
+    f32 = nyu_forward(model, dev)
+    rows = {"dense": run_nyu_eval(f32, frames, dev, "dense")}
+    cpu = nyu_forward(model, torch.device("cpu"))
+    two = [a[:2] for a in frames]
+    rows["dense_cpu"] = run_nyu_eval(cpu, two, torch.device("cpu"),
+                                     "dense_cpu", timed=False)
+    rows["dense_card_2"] = run_nyu_eval(f32, two, dev, "dense_2_frames",
+                                        timed=False)
+    rows["sparse"] = run_nyu_eval(f32, frames, dev, "sparse_xla",
+                                  thresh=NYU_THRESH)
+    bf16 = nyu_forward(model, dev, bf16=True)
+    rows["bf16"] = run_nyu_eval(bf16, frames, dev, "bf16")
+
+    # card vs CPU, bf16 vs f32, thresh -1 == dense
+    d_card = nyu_eval.predict_depth_batch(f32, two[0], device=dev)
+    d_cpu = nyu_eval.predict_depth_batch(cpu, two[0],
+                                         device=torch.device("cpu"))
+    del cpu
+    c = nyu_eval.EIGEN_CROP
+    crop = (slice(None), slice(c[0], c[1] + 1), slice(c[2], c[3] + 1))
+    pf, pb = (np.concatenate([nyu_eval.predict_depth_batch(
+        f, frames[0][i:i + NYU_B], device=dev)[crop]
+        for i in range(0, NYU_FRAMES, NYU_B)]) for f in (f32, bf16))
+    x8 = nyu_input(frames[0][:NYU_B], dev)
+    dense = f32(x8, None)
+    minus1 = f32(x8, -1.0)
+    gap = np.abs(pb - pf)
+    check = {
+        "phase": "nyu_checks",
+        "card_vs_cpu_depth_max": float(np.abs(d_card - d_cpu).max()),
+        "card_vs_cpu_row_max": max(float(abs(rows["dense_card_2"][k]
+                                             - rows["dense_cpu"][k]))
+                                   for k in NYU_ROW[:6]),
+        "card_vs_cpu_eps_max": max(float(abs(rows["dense_card_2"][k]
+                                             - rows["dense_cpu"][k]))
+                                   for k in NYU_ROW[6:]),
+        "bf16_vs_f32_depth_m": {"max": float(gap.max()),
+                                "mean": float(gap.mean()),
+                                "f32_mean_depth": float(pf.mean())},
+        "rows": {k: {n: float(r[n]) for n in NYU_ROW}
+                 for k, r in rows.items() if k in ("dense", "bf16")},
+        "thresh_minus1_equals_dense": all(
+            torch.equal(minus1[k], v) for k, v in dense.items()),
+    }
+    emit(check)
+    require(check["card_vs_cpu_depth_max"] <= TOL
+            and check["card_vs_cpu_row_max"] <= TOL
+            and check["card_vs_cpu_eps_max"] <= NYU_EDGE_TOL
+            and np.isfinite(pb).all()
+            and gap.mean() <= 0.01 * pf.mean()
+            and check["thresh_minus1_equals_dense"], check)
+    del bf16, dense, minus1
+
+    # the serving path's sparse requests on the kernel backends
+    launches, raws = nyu_requests(dev, model, x8, errs)
+    raw5 = {}
+    for batch in (NYU_B, 1):
+        raw5[batch], dens = nyu_raw_masks(batch)
+        emit({"phase": "nyu_masks", "batch": batch,
+              "aggregate_density": dens,
+              "density_by_scale": {s: float(m.mean())
+                                   for s, m in raw5[batch].items()}})
+    nyu_kernel_checks(dev, errs, raws, "decoder threshold 0.05")
+    nyu_kernel_checks(dev, errs, raw5, "maskgen 5%")
+    sums = nyu_conv_times(dev, raw5)
+    nyu_forward_times(dev, model, x8, raw5)
+    mo = {s: m.to(dev) for s, m in raw5[NYU_B].items()}
+    p2d = nyu_forward(model, dev, "pallas2d")
+    for label, fn in (
+            ("dense B=8", lambda: f32(x8, None)),
+            ("dense B=1", lambda: f32(x8[:1], None)),
+            ("sparse pallas2d B=8, 5% masks",
+             lambda: p2d(x8, NYU_THRESH, mask_override=mo))):
+        nyu_profile(fn, label)
+    # cuDNN's own algorithm search, for comparison only (the path keeps
+    # cuDNN's heuristic choice)
+    torch.backends.cudnn.benchmark = True
+    try:
+        bench = time_variants({"dense": lambda: f32(x8, None)}, iters=2)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    emit({"phase": "nyu_time_forward", "model": "densenet161",
+          "batch": NYU_B, "cudnn_benchmark": True, **bench, **_card})
+    del f32, p2d
+    torch.cuda.empty_cache()
+    emit({"phase": "nyu_done", "seconds": time.perf_counter() - t_phase})
+    return {k: {"launches_nyu": launches[k],
+                **{f"{n}_nyu": v for n, v in sums[k].items()}}
+            for k in KERNELS}
+
+
 def main():
     dev = phase_device()
     sys.path.insert(0, REPO)
@@ -2436,6 +2982,7 @@ def main():
         batch = phase_train_contracts(dev, root)
         warp_ms = phase_train_times(dev, root, batch)
         phase_eval(dev, ckpt, tmp)
+        nyu = phase_nyu(dev, errs, tmp)
     # ms: one K3 launch at (12, 192, 640, 3) (backward: the training
     # path's, no source-row pass); launches: the train main path's
     kernels += [{
@@ -2443,6 +2990,11 @@ def main():
         "replaces": WARP_REPLACES, "launches": warp_launches[k],
         "max_abs_err": errs[k], **warp_ms[k]}
         for k in ("banded_warp_fwd", "banded_warp_bwd")]
+    # K1 / K4: the NYU serving path's launches (the sparse requests of
+    # phase 12) and, *_nyu, the B=8 sums over the NYU convs each runs per
+    # sparse forward on its backend, at the 5% operating point
+    for entry, k in zip(kernels, KERNELS):
+        entry.update(nyu[k])
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -80,6 +80,11 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.data.synth",
     "wavelet_monodepth_tpu_torch.tools.evaluate_depth",
     "wavelet_monodepth_tpu_torch.tools.export_gt_depth",
+    "wavelet_monodepth_tpu_torch.models.densenet",
+    "wavelet_monodepth_tpu_torch.models.mobilenetv2",
+    "wavelet_monodepth_tpu_torch.models.decoders_nyu",
+    "wavelet_monodepth_tpu_torch.eval.nyu_eval",
+    "wavelet_monodepth_tpu_torch.tools.evaluate_nyu",
 ]
 
 

@@ -300,6 +300,20 @@ def test_unported_features_raise(kw, match):
         TSetup(TOptions(**dict(FIELDS, **kw), device="cpu")).init_state()
 
 
+def test_setup_follows_opts_device():
+    """Without device=, the setup runs where opts.device says: the card by
+    default, which raises the plain no-card error on a machine without
+    one."""
+    assert TSetup(TOptions(**FIELDS, device="cpu")).device == \
+        torch.device("cpu")
+    assert TOptions(**FIELDS).device == "cuda"
+    if torch.cuda.is_available():
+        assert TSetup(TOptions(**FIELDS)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card is visible"):
+            TSetup(TOptions(**FIELDS))
+
+
 def test_hint_supervised_loss_decreases():
     """Twin of tests/test_training_learns.py: overfitting one batch, the
     port's hint loss falls by >= 15% in 30 steps."""

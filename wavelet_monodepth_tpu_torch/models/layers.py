@@ -1,7 +1,8 @@
-"""Decoder building blocks: Conv3x3, Conv1x1, ConvBlock, WaveConv and
-upsample_concat.
+"""Decoder building blocks: Conv3x3, Conv1x1, ConvBlock, WaveConv,
+upsample_concat and NYU's DWConv3x3.
 
-Counterpart of `wavelet_monodepth_tpu/models/layers.py:42-164`, with the
+Counterpart of `wavelet_monodepth_tpu/models/layers.py:42-164` (and of
+`DWConv3x3` in `models/decoders_nyu.py:41-72`), with the
 same `in_mask` / `out_mask` / `use_pallas` routing. Activations are NHWC.
 Submodule names reproduce the reference's state-dict keys (ConvBlock ->
 `.conv.conv`, WaveConv -> `Sequential(.0.conv, LeakyReLU, .2.conv)`), so
@@ -28,11 +29,20 @@ import torch.nn.functional as F
 from ..ops import capacity as cap
 from ..ops import convops
 from ..ops import tile_sparse_conv as tsc
-from ..ops.image import upsample_nearest2x
+from ..ops.image import pad2d, upsample_nearest2x
 
 Tensor = torch.Tensor
 
-_KERNEL_NONLIN = {F.elu: tsc.elu, torch.sigmoid: tsc.sigmoid}
+
+def leaky_relu_02(x: Tensor) -> Tensor:
+    """LeakyReLU(0.2), the NYU UpBlock's activation."""
+    return F.leaky_relu(x, negative_slope=0.2)
+
+
+# what the kernels run for each activation the decoders pass (their
+# epilogue codes; the values are equal)
+_KERNEL_NONLIN = {F.elu: tsc.elu, torch.sigmoid: tsc.sigmoid,
+                  leaky_relu_02: tsc.leaky_relu_02}
 
 
 @torch.no_grad()
@@ -196,6 +206,39 @@ class WaveConv(nn.Sequential):
         y = self[2](h)
         if final_nonlin is not None:
             y = final_nonlin(y)
+        if out_mask is not None:
+            y = y * out_mask
+        return y
+
+
+class DWConv3x3(nn.Module):
+    """Depthwise-separable 3x3 (`NYUv2/networks/layers.py:23-25,70-79`):
+    pad -> depthwise 3x3 (no bias) -> ReLU -> pointwise 1x1 (no bias).
+    `use_pallas` is taken for the interface and ignored: the depthwise
+    variant always runs masked dense, as in JAX."""
+
+    def __init__(self, in_features: int, features: int,
+                 pad_mode: str = "zero"):
+        super().__init__()
+        self.pad_mode = pad_mode
+        self.depthwise = nn.Conv2d(in_features, in_features, 3,
+                                   groups=in_features, bias=False)
+        self.pointwise = nn.Conv2d(in_features, features, 1, bias=False)
+
+    def forward(self, x: Tensor, in_mask: Optional[Tensor] = None,
+                out_mask: Optional[Tensor] = None,
+                nonlin: Optional[Callable[[Tensor], Tensor]] = None,
+                use_pallas=False) -> Tensor:
+        if in_mask is not None:
+            x = x * in_mask
+        y = F.relu(convops.conv2d(pad2d(x, 1, self.pad_mode),
+                                  self.depthwise.weight,
+                                  groups=x.shape[-1]))
+        if in_mask is not None:
+            y = y * in_mask
+        y = convops.conv2d(y, self.pointwise.weight)
+        if nonlin is not None:
+            y = nonlin(y)
         if out_mask is not None:
             y = y * out_mask
         return y

@@ -5,7 +5,8 @@ Counterpart of `wavelet_monodepth_tpu/models/resnet.py` (the multi-image
 pose encoder aside). torchvision's topology and names under the
 reference's `encoder.` scope, so a reference `encoder.pth` loads into it:
 conv7x7/2 -> [relu feat0] -> maxpool3/2 -> layer1..4 at strides 4..32,
-BN eps 1e-5, input normalised as (x - 0.45) / 0.225. ResNet18/34 stack
+BN eps 1e-5, input normalised as (x - 0.45) / 0.225 (unless
+`normalize_input=False`, the NYU default). ResNet18/34 stack
 BasicBlocks, 50/101/152 Bottlenecks (1x1, 3x3 carrying the stride as in
 torchvision v1.5, 1x1 at 4x width), so `num_ch_enc` is
 (64, 64, 128, 256, 512) or (64, 256, 512, 1024, 2048). Takes NHWC images
@@ -138,13 +139,15 @@ class ResnetEncoder(nn.Module):
     """Returns [feat0 (H/2), feat1 (H/4), ..., feat4 (H/32)], NHWC.
     BN follows the module's mode: call `.eval()` for inference."""
 
-    def __init__(self, num_layers: int = 18):
+    def __init__(self, num_layers: int = 18, normalize_input: bool = True):
         super().__init__()
         self.num_ch_enc = num_ch_enc(num_layers)
+        self.normalize_input = normalize_input
         self.encoder = _ResNet(num_layers)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        x = (x - 0.45) / 0.225
+        if self.normalize_input:
+            x = (x - 0.45) / 0.225
         e = self.encoder
         x = F.relu(e.bn1(e.conv1(x.permute(0, 3, 1, 2))))
         feats = [x]

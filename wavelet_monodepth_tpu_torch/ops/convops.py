@@ -15,13 +15,14 @@ from .image import pad2d
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
-           stride: int = 1, padding="VALID") -> torch.Tensor:
-    """Plain NHWC conv. w: (cout, cin, kh, kw). padding is 'VALID', 'SAME'
-    or an int."""
+           stride: int = 1, padding="VALID", groups: int = 1
+           ) -> torch.Tensor:
+    """Plain NHWC conv. w: (cout, cin // groups, kh, kw). padding is
+    'VALID', 'SAME' or an int."""
     if isinstance(padding, str):
         padding = {"VALID": 0, "SAME": "same"}[padding]
     y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride,
-                 padding=padding)
+                 padding=padding, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 

@@ -12,6 +12,7 @@ counterpart to port.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -42,16 +43,42 @@ def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(n, 2 * h, 2 * w, c)
 
 
+def _interp_matrix_ac(out_n: int, in_n: int, like: torch.Tensor
+                      ) -> torch.Tensor:
+    """(out_n, in_n) corner-aligned 1-D linear interpolation matrix, its
+    positions and weights computed in float64, in like's dtype and
+    device (2 nonzeros per row)."""
+    pos = (np.linspace(0.0, in_n - 1.0, out_n) if out_n > 1
+           else np.zeros((1,)))
+    i0 = np.minimum(np.floor(pos).astype(np.int64), in_n - 1)
+    i1 = np.minimum(i0 + 1, in_n - 1)
+    f = pos - i0
+    m = np.zeros((out_n, in_n), np.float64)
+    np.add.at(m, (np.arange(out_n), i0), 1.0 - f)
+    np.add.at(m, (np.arange(out_n), i1), f)
+    return torch.from_numpy(m).to(device=like.device, dtype=like.dtype)
+
+
 def resize_bilinear(x: torch.Tensor, height: int, width: int,
                     align_corners: bool = False) -> torch.Tensor:
-    """Bilinear resize, torch `F.interpolate(mode='bilinear')` semantics.
+    """Bilinear resize with torch `F.interpolate(mode='bilinear')`'s
+    semantics, never antialiased.
 
-    For upsampling (the inference tool's use) this equals the JAX
-    package's `jax.image.resize(..., 'linear')`; when downsampling, JAX
-    antialiases and torch does not.
+    align_corners=False is `F.interpolate`; for upsampling (the inference
+    tool's use) it equals the JAX package's `jax.image.resize(...,
+    'linear')` (when downsampling, JAX antialiases and torch does not).
+    align_corners=True (the NYU eval's) is two matmuls with the
+    interpolation matrices, as the JAX package computes it
+    (`ops/image.py:58-67`): `F.interpolate` takes its source positions
+    in float32, up to 2e-4 off on values of 10 at 320 px.
     """
+    if align_corners:
+        my = _interp_matrix_ac(height, x.shape[1], x)
+        mx = _interp_matrix_ac(width, x.shape[2], x)
+        return torch.einsum("pw,nowc->nopc", mx,
+                            torch.einsum("oh,nhwc->nowc", my, x))
     y = F.interpolate(_nchw(x), size=(height, width), mode="bilinear",
-                      align_corners=align_corners)
+                      align_corners=False)
     return _nhwc(y)
 
 

@@ -40,6 +40,7 @@ from ..models.factory import make_depth_decoder, make_depth_encoder
 from ..models.layers import init_params
 from ..ops import augment
 from ..utils.config import KittiOptions
+from ..utils.device import resolve_device
 from ..utils.precision import cast_floats
 from . import losses_kitti
 from .optim import make_optimizer, steplr
@@ -57,12 +58,19 @@ class KittiTrainSetup:
     """Builds the modules, the initial state and the steps."""
 
     def __init__(self, opts: KittiOptions, steps_per_epoch: int = 1000,
-                 device="cpu"):
+                 device=None):
+        """device: where the modules and steps run; None follows
+        `opts.device` (the card by default), which raises without one."""
         opts.validate_for_training()
         if opts.use_pose_net:
             raise NotImplementedError(
                 "pose networks are not ported yet (ROADMAP.md, Queue 1 item "
                 "3: models/pose.py and the M+S pose-frame warps)")
+        if opts.encoder_type != "resnet":
+            raise NotImplementedError(
+                f"training encoder_type={opts.encoder_type!r} is not ported "
+                "yet: the ImageNet init and the trainer are ResNet-only "
+                "(ROADMAP.md, Queue 1 item 3: remaining KITTI models)")
         for name, default in (("data_axis", 1), ("native_decode", False),
                               ("coordinator_address", None),
                               ("num_processes", None)):
@@ -71,7 +79,8 @@ class KittiTrainSetup:
                     f"--{name} is not ported yet (ROADMAP.md, Queue 1 item 6: "
                     "multi-GPU and tools)")
         self.opts = opts
-        self.device = torch.device(device)
+        self.device = resolve_device(opts.device if device is None
+                                     else device)
         self.lr_at = steplr(opts.learning_rate, steps_per_epoch,
                             opts.scheduler_step_size)
 

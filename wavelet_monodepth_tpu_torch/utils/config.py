@@ -4,8 +4,10 @@ Counterpart of `KittiOptions` / `parse_kitti_args` in
 `wavelet_monodepth_tpu/utils/config.py` (the reference's
 `KITTI/options.py`), with the same fields, defaults and flag parsing
 (`--flag` / `--no-flag` for bools, lists for tuples), plus the port's
-`device`. The NYU options wait for the NYU slice. `opt.json` beside the
-checkpoints is `save_opts`' dump.
+`device`; and `NyuOptions` / `parse_nyu_args`, the whole NYUv2 dataclass
+(`NYUv2/train.py:167-199`, `evaluate.py:19-51`), its training fields
+included, plus the port's `device`. `opt.json` beside the checkpoints is
+`save_opts`' dump.
 """
 
 from __future__ import annotations
@@ -129,6 +131,44 @@ class KittiOptions:
         return not (self.use_stereo and tuple(self.frame_ids) == (0,))
 
 
+@dataclass
+class NyuOptions:
+    data_path: str = "nyu_data.zip"
+    log_dir: str = "log"
+    model_name: str = "nyu"
+    encoder_type: str = "densenet"   # densenet|resnet|mobilenet|mobilenet_light
+    num_layers: int = 161
+    epochs: int = 20
+    lr: float = 1e-4
+    batch_size: int = 8
+    use_wavelets: bool = False
+    use_sparse: bool = False
+    use_224: bool = False
+    dw_waveconv: bool = False
+    dw_upconv: bool = False
+    normalize_input: bool = False          # the reference's flag is a silent no-op (its encoders normalise out of place), so published NYU models saw raw [0, 1] inputs; True is real ImageNet normalisation, never for reference checkpoints
+    pretrained_encoder: bool = True        # ImageNet encoder init from --imagenet_weights_path (a local file); without one, scratch init
+    imagenet_weights_path: Optional[str] = None  # local torchvision densenet161 / resnet state dict (.pth)
+    disparity: bool = False
+    supervise_LL: bool = False
+    loss_scales: tuple = (0, 1, 2, 3)
+    threshold: float = 0.1
+    log_frequency: int = 300
+    num_workers: int = 4
+    load_weights_folder: Optional[str] = None
+    # additions of the JAX package
+    data_axis: int = 1                     # data-parallel device count (the port runs one card)
+    bfloat16: bool = False
+    checkpoint_backend: str = "msgpack"    # the JAX package's state format
+    auto_resume: bool = False              # restore the newest weights_<epoch> under log_dir/model_name and continue from epoch+1 (--load_weights_folder wins)
+    float_feed: bool = False               # cast and clamp on the host (the reference's ToTensor); default ships uint8 and casts on the card
+    coordinator_address: Optional[str] = None  # multi-host (not ported yet)
+    num_processes: Optional[int] = None        # multi-host (not ported yet)
+    process_id: Optional[int] = None           # multi-host (not ported yet)
+    # the port's own
+    device: str = "cuda"                   # cuda (raises without a card) | cpu
+
+
 def save_opts(opts, path: str):
     with open(path, "w") as f:
         json.dump(dataclasses.asdict(opts), f, indent=2, default=str)
@@ -166,3 +206,14 @@ def parse_kitti_args(argv=None) -> KittiOptions:
         kw[k] = tuple(int(v) if str(v).lstrip("-").isdigit() else v
                       for v in kw[k])
     return KittiOptions(**kw)
+
+
+def parse_nyu_args(argv=None) -> NyuOptions:
+    parser = argparse.ArgumentParser(description="WaveletMonoDepth NYUv2 "
+                                                 "options (PyTorch port)")
+    _add_dataclass_args(parser, NyuOptions)
+    ns = parser.parse_args(argv)
+    kw = {f.name: getattr(ns, f.name) for f in
+          dataclasses.fields(NyuOptions)}
+    kw["loss_scales"] = tuple(int(v) for v in kw["loss_scales"])
+    return NyuOptions(**kw)
