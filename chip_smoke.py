@@ -6,10 +6,11 @@ ResNet18, 640x192, random weights from seeded torch.Generators): serving
 (dense and sparse inference on every sparse backend: the tile-sparse 3x3
 conv kernel, the block IO kernels of the compact backend), training
 (stereo + depth hints at batch 12 with the banded warp kernel), the
-eigen-split evaluation (ResNet18 640x192 and ResNet50 1024x320) and the
+eigen-split evaluation (ResNet18 640x192 and ResNet50 1024x320), the
 NYUv2 serving and evaluation path (DenseNet161 + the wavelet decoder at
-640x480), plus the fused wave stage kernel on the serving slice's own
-stage inputs, in phases; any failure raises and exits non-zero:
+640x480) and its training (the same model at batch 8), plus the fused
+wave stage kernel on the serving slice's own stage inputs, in phases;
+any failure raises and exits non-zero:
 
   1. device: needs CUDA (raises otherwise), turns TF32 off, prints the
      card's name and power limit;
@@ -112,7 +113,9 @@ stage inputs, in phases; any failure raises and exits non-zero:
      --eval_stereo: ResNet18 640x192 on phase 8's checkpoint, (a) dense
      --post_process (also on the CPU), (b) --use_sparse --threshold 0.1
      --post_process, (c) --bfloat16 --post_process, (d)
-     --ext_disp_to_eval of (a)'s saved disparities; ResNet50 1024x320 on
+     --ext_disp_to_eval of (a)'s saved disparities, and (a) once more with
+     TF32 on (the CLIs pin float32; a record of how far TF32 would move
+     the row, `eval_tf32`); ResNet50 1024x320 on
      seeded weights, dense and sparse. Finite rows, (d) == (a), card vs
      CPU within 1e-4 (disparities and row), (b)'s ops == the decoder's
      own, (c) within the bf16 bounds of (a); per run the row, density,
@@ -144,7 +147,25 @@ stage inputs, in phases; any failure raises and exits non-zero:
      dense and sparse on every backend at the 5% masks, MobileNetV2 +
      NyuDecoderWave at B=8, profiles of the B=8 and B=1 dense and the B=8
      pallas2d forwards (costliest kernels, ATen ops and convs), and the
-     B=8 dense forward under cudnn.benchmark for comparison.
+     B=8 dense forward under cudnn.benchmark for comparison;
+ 13. nyu_train: data/synth.fabricate_nyu writes a 24-frame nyu_data.zip
+     (640x480 PNGs), and tools/train_nyu.main trains DenseNet161 +
+     NyuDecoderWave at 640x480, B=8, lr 1e-4, for one epoch (3 steps, a
+     validation batch at each) in float32 and again with --bfloat16:
+     finite losses, the port's NYU checkpoint (model.pth, adam.pth,
+     opt.json; float32 only) and no launch of the six kernels (the
+     training decoder is dense); tools/evaluate_nyu.main
+     --load_weights_folder scores the float32 checkpoint on 4 of phase
+     12's synthetic labeled frames (edges on), its row finite. Checks: a
+     train-mode forward and the losses at B=1 on the card and on the
+     host within 1e-4 relative; the bf16 mixed-precision first step's
+     loss within 1% of the float32 step's on the same weights and batch,
+     its masters, BN statistics and Adam moments float32; the learning
+     twin (mobilenet_light, 64x96, B=2, 30 steps on one batch) falls by
+     >= 10% in float32 and bf16. Times: ms per B=8 step in float32 and
+     bf16, peak memory of each first step, a profile of each (idle share,
+     device time by ATen op, the costliest convs forward and backward
+     with their shapes and cuDNN kernels).
 
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
@@ -156,6 +177,7 @@ Usage: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1558,6 +1580,19 @@ def train_argv(root: str, log: str, kern: str = "on", batch=TRAIN_B,
                 ["--use_depth_hints"] if hints else ["--disable_automasking"])
 
 
+def float_dtypes_of(*paths) -> list:
+    """The float dtypes of the tensors saved in checkpoint files (a state
+    dict, or an optimizer's, whose moments sit under "state")."""
+    import torch
+    dtypes = set()
+    for f in paths:
+        sd = torch.load(f, map_location="cpu", weights_only=True)
+        flat = list(sd["state"].values()) if "state" in sd else [sd]
+        dtypes |= {str(v.dtype) for d in flat for v in d.values()
+                   if torch.is_tensor(v) and v.is_floating_point()}
+    return sorted(dtypes)
+
+
 def phase_train_slice(dev, root: str, log: str, bf16: bool = False):
     """tools/train_kitti.main for one epoch (3 steps at B=12, one
     validation batch on the first log step), then tools/infer serves the
@@ -1590,13 +1625,8 @@ def phase_train_slice(dev, root: str, log: str, bf16: bool = False):
     need = [os.path.join(folder, f) for f in ("encoder.pth", "depth.pth",
                                               "adam.pth")]
     require(all(os.path.isfile(f) for f in need), need)
-    dtypes = set()
-    for f in need:
-        sd = torch.load(f, map_location="cpu", weights_only=True)
-        flat = sd["state"].values() if "state" in sd else [sd]
-        dtypes |= {str(v.dtype) for d in flat for v in d.values()
-                   if torch.is_tensor(v) and v.is_floating_point()}
-    require(dtypes == {"torch.float32"}, ("checkpoint dtypes", dtypes))
+    dtypes = float_dtypes_of(*need)
+    require(dtypes == ["torch.float32"], ("checkpoint dtypes", dtypes))
     grid_cols_off = None
     if bf16:
         # JAX's fault, reproduced: the backprojection grid in depth's dtype
@@ -1610,7 +1640,7 @@ def phase_train_slice(dev, root: str, log: str, bf16: bool = False):
                          "max_px": float(off.max())}
     emit({"phase": "train_main", "steps": steps, "val_batches": vals,
           "batch": TRAIN_B, "res": [H, W], "stereo_warp_kernel": "on",
-          "bfloat16": bf16, "checkpoint_float_dtypes": sorted(dtypes),
+          "bfloat16": bf16, "checkpoint_float_dtypes": dtypes,
           "bf16_backprojection_grid_off": grid_cols_off,
           "launches": launches, "seconds_incl_load_and_init": seconds,
           "losses": summary["losses"], "checkpoint": folder})
@@ -1833,12 +1863,18 @@ def learning_contract(dev, steps: int = 30, bf16: bool = False):
     batch = twin_batch(dev)
     hints = [float(setup.train_step(state, batch, noise)
                    ["depth_hint_loss/0"]) for _ in range(steps)]
+    return hints, state_float_dtypes(state)
+
+
+def state_float_dtypes(state) -> list:
+    """The float dtypes of a train state's parameters, buffers (BN
+    statistics) and Adam moments."""
+    import torch
     tensors = [t for m in (state.encoder, state.decoder)
                for t in list(m.parameters()) + list(m.buffers())]
     tensors += [v for d in state.optimizer.state.values()
                 for v in d.values() if torch.is_tensor(v)]
-    dtypes = sorted({str(t.dtype) for t in tensors if t.is_floating_point()})
-    return hints, dtypes
+    return sorted({str(t.dtype) for t in tensors if t.is_floating_point()})
 
 
 # --- phase 10: training times ------------------------------------------------
@@ -2298,6 +2334,27 @@ def decoder_ops_mean(argv, weights, dev, thresh) -> float:
     return float(np.mean(ops))
 
 
+@contextlib.contextmanager
+def tf32_on(on: bool):
+    """With on: the CLIs' pin_float32 turns TF32 on in place of off, for
+    one measurement of what TF32 would change; float32 again after."""
+    import torch
+    from wavelet_monodepth_tpu_torch.utils import device as device_rule
+    pin = device_rule.pin_float32
+
+    def allow(device):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+    if on:
+        device_rule.pin_float32 = allow
+    try:
+        yield
+    finally:
+        device_rule.pin_float32 = pin
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def phase_eval(dev, ckpt18: str, tmp: str) -> None:
     """tools/evaluate_depth.main on a synthetic eigen mount (16 test
     frames at 1242x375, data/synth.py): KITTI ResNet18 640x192 on the
@@ -2342,14 +2399,26 @@ def phase_eval(dev, ckpt18: str, tmp: str) -> None:
         res = {}
         for mode, extra, run_dev in (
                 ("dense", ["--post_process"], dev),
+                ("dense_tf32", ["--post_process"], dev),
                 ("dense_cpu", ["--post_process", "--device", "cpu"], "cpu"),
                 ("bf16", ["--post_process", "--bfloat16"], dev)):
-            res[mode] = run_eval(
-                argv + extra + ["--load_weights_folder", folder,
-                                "--save_pred_disps"],
-                None, run_dev, name, mode, timed=mode != "dense_cpu")
+            with tf32_on(mode == "dense_tf32"):
+                res[mode] = run_eval(
+                    argv + extra + ["--load_weights_folder", folder,
+                                    "--save_pred_disps"],
+                    None, run_dev, name, mode,
+                    timed=mode not in ("dense_cpu", "dense_tf32"))
             disps[mode] = np.load(saved)
             os.replace(saved, os.path.join(folder, f"{mode}.npy"))
+        # the record of what TF32 would move (the CLI pins float32)
+        emit({"phase": "eval_tf32", "config": name,
+              "metric_change_tf32_on": {
+                  k: abs(res["dense_tf32"]["metrics"][k] - v)
+                  for k, v in res["dense"]["metrics"].items()},
+              "disp_change_max": float(np.abs(disps["dense_tf32"]
+                                              - disps["dense"]).max()),
+              **_card})
+        del res["dense_tf32"]
         res["sparse"] = run_eval(argv + sparse + ["--load_weights_folder",
                                                   folder],
                                  None, dev, name, "sparse", True)
@@ -2898,6 +2967,288 @@ def phase_nyu(dev, errs, tmp: str) -> dict:
             for k in KERNELS}
 
 
+# --- phase 13: NYUv2 training -----------------------------------------------
+
+NYU_TRAIN_FRAMES = 24        # 3 steps at the reference's batch 8
+NYU_TRAIN_B = 8
+NYU_EVAL_FRAMES = 4
+# a twin of the learning contract: mobilenet_light at 64x96, B=2
+NYU_TWIN = (2, 64, 96)
+
+
+def nyu_train_argv(zip_path: str, log: str, dev, bf16: bool = False):
+    """train_nyu's flags for the published row: DenseNet161 +
+    NyuDecoderWave at 640x480, B=8, lr 1e-4, one epoch, a validation batch
+    at every step, scratch weights."""
+    return ["--data_path", zip_path, "--log_dir", log, "--model_name",
+            "densenet161_wave", "--encoder_type", "densenet",
+            "--use_wavelets", "--batch_size", str(NYU_TRAIN_B), "--epochs",
+            "1", "--log_frequency", "1", "--no-pretrained_encoder",
+            "--device", str(dev)] + (["--bfloat16"] if bf16 else [])
+
+
+def kernel_launch_total() -> int:
+    """Launches of the six kernels counted so far, every dtype."""
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    from wavelet_monodepth_tpu_torch.ops import fused_stage as fs
+    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
+    from wavelet_monodepth_tpu_torch.ops import warp
+    return sum(sum(d.values()) for d in (tsc.launches, warp.launches,
+                                         bio.launches, bio.launches_bf16,
+                                         fs.launches))
+
+
+def run_train_nyu(dev, zip_path: str, log: str, bf16: bool) -> str:
+    """tools/train_nyu.main for one epoch (3 steps, 3 validation batches);
+    checks its losses, its checkpoint and that it launched none of the
+    six kernels (the training decoder is dense). Returns the folder."""
+    import numpy as np
+    import torch
+    from wavelet_monodepth_tpu_torch.tools import train_nyu
+    before = kernel_launch_total()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = train_nyu.main(nyu_train_argv(zip_path, log, dev, bf16),
+                             device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(summary["steps"] == 3 and summary["val_batches"] == 3, summary)
+    require(all(np.isfinite(v) for d in summary["losses"]
+                + summary["val_losses"] for v in d.values()),
+            ("finite NYU losses", summary))
+    folder = summary["checkpoints"][-1]
+    need = [os.path.join(folder, f) for f in ("model.pth", "adam.pth")]
+    opt_json = os.path.join(os.path.dirname(folder), "opt.json")
+    require(all(os.path.isfile(f) for f in need + [opt_json]), need)
+    dtypes = float_dtypes_of(*need)
+    require(dtypes == ["torch.float32"], ("NYU checkpoint dtypes", dtypes))
+    launched = kernel_launch_total() - before
+    require(launched == 0, ("kernel launches on the NYU train path",
+                            launched))
+    emit({"phase": "nyu_train", "run": "train_main", "bfloat16": bf16,
+          "batch": NYU_TRAIN_B, "res": [NYU_H, NYU_W],
+          "steps": summary["steps"], "val_batches": summary["val_batches"],
+          "kernel_launches": launched, "main_seconds": seconds,
+          "checkpoint_float_dtypes": dtypes, "losses": summary["losses"],
+          "val_losses": summary["val_losses"], "checkpoint": folder,
+          **_card})
+    return folder
+
+
+def score_nyu_checkpoint(dev, folder: str, tmp: str) -> None:
+    """tools/evaluate_nyu.main --load_weights_folder on the checkpoint, over
+    NYU_EVAL_FRAMES of the nyu phase's synthetic labeled frames (handed to
+    main in place of the .mat reader: the card's machine may lack h5py)
+    with their Canny edges as GT edge PNGs."""
+    import numpy as np
+    from PIL import Image
+    from wavelet_monodepth_tpu_torch.eval import nyu_eval
+    from wavelet_monodepth_tpu_torch.tools import evaluate_nyu
+    rgb, depth, edges = nyu_frames(NYU_EVAL_FRAMES, seed=1)
+    edges_dir = os.path.join(tmp, "nyu_train_edges")
+    os.makedirs(edges_dir, exist_ok=True)
+    for i, e in enumerate(edges):
+        Image.fromarray(e.astype(np.uint8) * 255).save(
+            os.path.join(edges_dir, f"{i + 1:04d}.png"))
+    reader = nyu_eval.load_nyu_labeled
+    nyu_eval.load_nyu_labeled = lambda *a: (rgb, depth)
+    try:
+        t0 = time.perf_counter()
+        row = evaluate_nyu.main([
+            "--data_path", "synthetic", "--splits_path", "synthetic",
+            "--load_weights_folder", folder, "--use_wavelets",
+            "--edges_dir", edges_dir, "--device", str(dev)])
+        seconds = time.perf_counter() - t0
+    finally:
+        nyu_eval.load_nyu_labeled = reader
+    require(all(np.isfinite(row[k]) for k in NYU_ROW), ("NYU row", row))
+    emit({"phase": "nyu_train", "run": "evaluate_checkpoint",
+          "frames": NYU_EVAL_FRAMES, "row": {k: float(row[k])
+                                              for k in NYU_ROW},
+          "seconds": seconds, "checkpoint": folder})
+
+
+def nyu_setup(dev, bf16: bool = False, twin: bool = False):
+    """(NyuTrainSetup, its state from seed 0) of the published row, or of
+    the learning twin (mobilenet_light)."""
+    import torch
+    from wavelet_monodepth_tpu_torch.train.nyu import NyuTrainSetup
+    from wavelet_monodepth_tpu_torch.utils.config import parse_nyu_args
+    argv = nyu_train_argv("unused", "unused", dev, bf16)
+    if twin:
+        argv += ["--encoder_type", "mobilenet_light", "--batch_size",
+                 str(NYU_TWIN[0])]
+    setup = NyuTrainSetup(parse_nyu_args(argv), device=dev)
+    return setup, setup.init_state(torch.Generator().manual_seed(0))
+
+
+def nyu_twin_contract(dev, bf16: bool, steps: int = 30) -> dict:
+    """The learning contract: mobilenet_light at 64x96, B=2, lr 1e-4, one
+    fixed seeded batch (depth a vertical ramp of 100-500 cm plus 0-20 cm
+    of noise), 30 steps: the loss falls by >= 10%; masters, BN
+    statistics and Adam moments float32 after."""
+    import numpy as np
+    import torch
+    n, h, w = NYU_TWIN
+    rs = np.random.RandomState(0)
+    image = torch.from_numpy(rs.rand(n, h, w, 3).astype(np.float32)).to(dev)
+    ramp = np.linspace(100.0, 500.0, h // 2)[None, :, None, None]
+    depth = torch.from_numpy((ramp + 20.0 * rs.rand(n, h // 2, w // 2, 1))
+                             .astype(np.float32)).to(dev)
+    setup, state = nyu_setup(dev, bf16, twin=True)
+    losses = [float(setup.train_step(state, image, depth)["loss"])
+              for _ in range(steps)]
+    dtypes = state_float_dtypes(state)
+    out = {"bfloat16": bf16, "first": losses[0], "last": losses[-1],
+           "fall": 1.0 - losses[-1] / losses[0], "dtypes": dtypes}
+    require(np.isfinite(losses).all() and out["fall"] >= 0.10
+            and dtypes == ["torch.float32"], ("NYU learning twin", out))
+    return out
+
+
+# up3.convA's reflect-padded input at B=8: the conv cuDNN runs as an FFT
+UP3_CONVA_INPUT = [NYU_TRAIN_B, 372, NYU_H // 4 + 2, NYU_W // 4 + 2]
+
+
+def conv_breakdown(fn, top: int = 6) -> list:
+    """The `top` convolutions of one fn() by device time, forward
+    (aten::cudnn_convolution) and backward (aten::convolution_backward),
+    and up3.convA's forward and backward whatever their rank, with their
+    input shapes and their costliest kernels (one torch.profiler trace
+    with shapes recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.events():
+        if e.name not in ("aten::cudnn_convolution",
+                          "aten::convolution_backward"):
+            continue
+        kern = {}
+        stack = [e]
+        while stack:                  # the kernels of e and its children
+            c = stack.pop()
+            for k in c.kernels:
+                kern[k.name] = kern.get(k.name, 0.0) + k.duration
+            stack.extend(c.cpu_children)
+        if not kern:
+            continue
+        shapes = [list(map(int, s)) for s in e.input_shapes[:3] if s]
+        key = (e.name, json.dumps(shapes))
+        row = rows.setdefault(key, {"op": e.name, "input_shapes": shapes,
+                                    "calls": 0, "device_ms": 0.0,
+                                    "kernels_us": {}})
+        row["calls"] += 1
+        row["device_ms"] += sum(kern.values()) / 1e3
+        for k, us in kern.items():
+            row["kernels_us"][k] = row["kernels_us"].get(k, 0.0) + us
+    ranked = sorted(rows.values(), key=lambda r: -r["device_ms"])
+    out = ranked[:top] + [r for r in ranked[top:]
+                          if UP3_CONVA_INPUT in r["input_shapes"]]
+    for r in out:
+        names = sorted(r["kernels_us"].items(), key=lambda kv: -kv[1])
+        r["kernels_us"] = {k[:90]: v for k, v in names[:4]}
+        r["up3_convA"] = UP3_CONVA_INPUT in r["input_shapes"]
+        r["fft"] = any("fft" in k.lower() or "cf32" in k.lower()
+                       or "cgemm" in k.lower() for k, _ in names)
+    return out
+
+
+def phase_nyu_train(dev, tmp: str) -> None:
+    """The NYUv2 training slice on the card (module docstring, phase 13)."""
+    import numpy as np
+    import torch
+    from wavelet_monodepth_tpu_torch.data import nyu as nyu_data
+    from wavelet_monodepth_tpu_torch.data import synth
+    from wavelet_monodepth_tpu_torch.data.loader import (parallel_batches,
+                                                        to_device)
+    from wavelet_monodepth_tpu_torch.ops.augment import expand_nyu
+
+    t_phase = time.perf_counter()
+    zip_path = os.path.join(tmp, "nyu_data.zip")
+    synth.fabricate_nyu(zip_path, n_train=NYU_TRAIN_FRAMES)
+    emit({"phase": "nyu_train", "run": "fabricate_nyu",
+          "frames": NYU_TRAIN_FRAMES,
+          "seconds": time.perf_counter() - t_phase})
+    folder = run_train_nyu(dev, zip_path, os.path.join(tmp, "nyu_log"),
+                           bf16=False)
+    run_train_nyu(dev, zip_path, os.path.join(tmp, "nyu_log_bf16"),
+                  bf16=True)
+    score_nyu_checkpoint(dev, folder, tmp)
+
+    # one B=8 batch of the zip through the port's dataset and loader
+    train_ds, _ = nyu_data.get_training_testing_data(zip_path,
+                                                     uint8_feed=True)
+    src = parallel_batches(train_ds, NYU_TRAIN_B, num_workers=4)
+    batch = next(to_device(src, dev))
+    src.close()
+    image, depth = batch["image"], batch["depth"]
+
+    # card vs CPU: a train-mode forward and the losses at B=1, seed 0
+    checks = {}
+    with torch.no_grad():
+        losses = {}
+        for side, d in (("card", dev), ("host", torch.device("cpu"))):
+            setup, state = nyu_setup(d)
+            img, dep = expand_nyu(image[:1].to(d), depth[:1].to(d))
+            losses[side] = {k: float(v) for k, v in setup.compute_losses(
+                setup.forward(state, img, train=True), dep).items()}
+            del setup, state
+    checks["card_vs_cpu_loss_rel"] = max(
+        abs(losses["card"][k] - v) / abs(v) for k, v in losses["host"].items())
+    torch.cuda.empty_cache()
+
+    # the first step of the same weights and batch in f32 and bf16, each
+    # with its peak memory
+    runs = {}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        runs[name] = nyu_setup(dev, bf16)
+    first, peak = {}, {}
+    for name, (setup, state) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        first[name] = float(setup.train_step(state, image, depth)["loss"])
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    dtypes = state_float_dtypes(runs["bf16"][1])
+    checks.update(card_vs_cpu_losses=losses, first_step_loss=first,
+                  bf16_vs_f32_first_loss_rel=abs(first["bf16"] - first["f32"])
+                  / abs(first["f32"]), bf16_state_dtypes=dtypes,
+                  twin=[nyu_twin_contract(dev, bf16) for bf16 in (False,
+                                                                   True)])
+    emit({"phase": "nyu_train", "run": "checks", **checks, **_card})
+    require(checks["card_vs_cpu_loss_rel"] <= 1e-4
+            and checks["bf16_vs_f32_first_loss_rel"] <= 0.01
+            and dtypes == ["torch.float32"], checks)
+
+    # ms per B=8 step, idle share, device time by ATen op, convs
+    steps = {name: (lambda s=s, st=st: s.train_step(st, image, depth))
+             for name, (s, st) in runs.items()}
+    t = time_variants(steps, iters=2)
+    emit({"phase": "nyu_train", "run": "time_train_step",
+          "batch": NYU_TRAIN_B, "res": [NYU_H, NYU_W], "tf32": False,
+          "peak_memory_gib_first_step": peak, **t, **_card})
+    for name, fn in steps.items():
+        _, by_kernel, by_op, busy, wall_ms = trace_calls(fn, 1)
+        emit({"phase": "nyu_train", "run": "profile_train_step",
+              "dtype": name, "kernels": sum(v[0] for v in by_kernel.values()),
+              "device_busy_ms": busy / 1e3, "wall_ms": wall_ms,
+              "idle_share": 1.0 - busy / 1e3 / wall_ms,
+              "top_aten_ops_ms": {k: v[0] / 1e3 for k, v in sorted(
+                  ((k, v) for k, v in by_op.items()
+                   if k.startswith("aten::")),
+                  key=lambda kv: -kv[1][0])[:8]},
+              "costliest_convs": conv_breakdown(fn), **_card})
+    del runs, steps
+    torch.cuda.empty_cache()
+    emit({"phase": "nyu_train_done",
+          "seconds": time.perf_counter() - t_phase})
+
+
 def main():
     dev = phase_device()
     sys.path.insert(0, REPO)
@@ -2983,6 +3334,7 @@ def main():
         warp_ms = phase_train_times(dev, root, batch)
         phase_eval(dev, ckpt, tmp)
         nyu = phase_nyu(dev, errs, tmp)
+        phase_nyu_train(dev, tmp)
     # ms: one K3 launch at (12, 192, 640, 3) (backward: the training
     # path's, no source-row pass); launches: the train main path's
     kernels += [{

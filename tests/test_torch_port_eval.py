@@ -478,8 +478,6 @@ def test_render_scene_equals_jax():
         assert np.abs(o.astype(int) - r).max() <= 1
     for o, r in zip(ours[2:], ref[2:]):
         np.testing.assert_array_equal(o, r)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tsynth.fabricate_nyu("x.zip")
 
 
 def test_fabricate_equals_jax(tmp_path):

@@ -293,7 +293,9 @@ def test_evaluate_nyu_main_equals_jax(nyu_mount, capsys):
     # DecoderWave only: a 224 DecoderWave224 has no up4 / wave4 there
     with pytest.raises(RuntimeError, match="up4"):
         tev.main(nyu_mount["argv"] + ["--use_224", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # --load_weights_folder reads the port's own NYU checkpoint
+    # (tests/test_torch_port_nyu_cli.py): a folder without one fails
+    with pytest.raises(FileNotFoundError, match="model.pth"):
         tev.main(nyu_mount["argv"][:-2] + ["--load_weights_folder", "w",
                                            "--device", "cpu"])
 

@@ -85,18 +85,24 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.models.decoders_nyu",
     "wavelet_monodepth_tpu_torch.eval.nyu_eval",
     "wavelet_monodepth_tpu_torch.tools.evaluate_nyu",
+    "wavelet_monodepth_tpu_torch.data.nyu",
+    "wavelet_monodepth_tpu_torch.train.losses_nyu",
+    "wavelet_monodepth_tpu_torch.train.nyu",
+    "wavelet_monodepth_tpu_torch.tools.train_nyu",
 ]
 
 
 def test_port_imports_no_jax():
     """Importing every port module (and running infer's lazy imports'
-    targets) loads neither jax/flax nor the JAX package, and no cv2."""
+    targets) loads neither jax/flax nor the JAX package, and no cv2 or
+    sklearn (the card's machine has neither)."""
     code = (
         "import sys, importlib\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
         "import PIL.Image\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'wavelet_monodepth_tpu', 'cv2'))\n"
+        "('jax', 'jaxlib', 'flax', 'wavelet_monodepth_tpu', 'cv2', "
+        "'sklearn'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

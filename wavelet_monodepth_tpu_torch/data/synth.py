@@ -10,7 +10,8 @@ full-res pixels and the GT depth is taken from the snapped disparity, so
 GT and photometry agree to the pixel. The texture's low-frequency part
 is upscaled with `ops/resize.resize_cubic` (OpenCV's INTER_CUBIC, within
 1e-5), the JPEGs are written with PIL and the hints resized with
-`data/kitti.resize_nearest`, so the port needs no cv2.
+`data/kitti.resize_nearest`, so the port needs no cv2. `fabricate_nyu`
+writes a synthetic NYU zip from the same renderer.
 
 Writes the raw-KITTI directory scheme plus a split dir the CLIs resolve
 via <data_path>/splits/<name> (data/splits.py):
@@ -31,7 +32,7 @@ import os
 
 import numpy as np
 
-from ..ops.resize import resize_cubic
+from ..ops.resize import resize_area_u8, resize_cubic
 from .kitti import resize_nearest
 
 FULL_W, FULL_H = 1242, 375
@@ -227,10 +228,40 @@ def fabricate(root: str, n_train: int = 480, n_val: int = 24,
 
 def fabricate_nyu(zip_path: str, n_train: int = 480, seed: int = 0,
                   depth_scale: float = 0.25) -> dict:
-    """The synthetic NYU zip waits for the NYU slice."""
-    raise NotImplementedError(
-        "fabricate_nyu is not ported yet (ROADMAP.md, Queue 1 item 4: the "
-        "NYUv2 tree)")
+    """Synthetic nyu_data.zip (DenseDepth's train layout, `NYUv2/data.py:
+    71-85`): data/nyu2_train.csv rows of (rgb png 640x480, depth png),
+    the JAX package's `fabricate_nyu` without cv2. The RGB and depth come
+    from the KITTI mount's renderer (left view and its true depth), the
+    depths compressed by `depth_scale` into NYU's indoor range (0.75-17.5
+    m by default; the train transform clamps them to 10 m: 8-bit png ->
+    /255 -> x1000 -> clamp [10, 1000] cm, `data.py:107-140`). The view is
+    resized with OpenCV's INTER_AREA (`ops/resize.resize_area_u8`, bit
+    for bit), the depth with INTER_NEAREST (`data/kitti.resize_nearest`),
+    and both are written as PNGs by PIL: other bytes than cv2's encoder,
+    the same pixels."""
+    import io
+    import zipfile
+
+    from PIL import Image
+
+    def png(arr) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "PNG")
+        return buf.getvalue()
+
+    rng = np.random.RandomState(seed)
+    rows = []
+    with zipfile.ZipFile(zip_path, "w", zipfile.ZIP_STORED) as zf:
+        for i in range(n_train):
+            left, _, depth, _ = render_scene(rng)
+            img = resize_area_u8(left, 640, 480)
+            d = resize_nearest(depth * depth_scale, 640, 480)
+            d8 = np.clip(d / 10.0 * 255.0, 1, 255).astype(np.uint8)
+            zf.writestr(f"data/img_{i:05d}.png", png(img))
+            zf.writestr(f"data/dep_{i:05d}.png", png(d8))
+            rows.append(f"data/img_{i:05d}.png,data/dep_{i:05d}.png")
+        zf.writestr("data/nyu2_train.csv", "\n".join(rows))
+    return {"zip": zip_path, "n_train": n_train}
 
 
 def main(argv=None):

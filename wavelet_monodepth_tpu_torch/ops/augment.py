@@ -1,10 +1,12 @@
-"""Colour jitter on the device, and the uint8 feed's expansion.
+"""Colour jitter on the device, and the uint8 feeds' expansion.
 
 Counterpart of `wavelet_monodepth_tpu/ops/augment.py` (`color_jitter`,
-`expand_batch`) on torch tensors. The train feed ships uint8 frames and
-four jitter factors per item (`data/kitti.py` with device_augment=True);
-`expand_batch` casts the frames to float and synthesises the scale-0
-`color_aug` on the card, which is where the step reads it.
+`expand_batch`, `expand_nyu`) on torch tensors. The KITTI train feed
+ships uint8 frames and four jitter factors per item (`data/kitti.py`
+with device_augment=True); `expand_batch` casts the frames to float and
+synthesises the scale-0 `color_aug` on the card, which is where the step
+reads it. The NYU feed ships uint8 images and depths (`data/nyu.py`
+with uint8_feed=True), which `expand_nyu` casts and clamps on the card.
 
 Semantics are PIL's enhance chain (brightness -> contrast -> saturation ->
 hue, `mono_dataset.py:98-104`) in float: each blend clips to [0, 1]
@@ -13,6 +15,8 @@ of a turn (PIL adds int(hue * 255) to its 8-bit H channel).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -103,3 +107,20 @@ def expand_batch(inputs: dict) -> dict:
             out[("color_aug", fid, 0)] = color_jitter(
                 color0, p[:, 0], p[:, 1], p[:, 2], p[:, 3])
     return out
+
+
+def expand_nyu(image: Tensor, depth: Optional[Tensor] = None):
+    """NYU uint8-feed batches (`data/nyu.NyuDepthDataset(uint8_feed=True)`):
+    a uint8 image becomes float32 / 255; a uint8 depth gets the train
+    transform's centimetre clamp clip(d / 255 * 1000, 10, 1000), in the
+    host float path's order of operations, so both feeds give the same
+    bits. Float inputs pass through unchanged. Returns the image alone
+    when `depth` is None (the eval step's signature)."""
+    if image.dtype == torch.uint8:
+        image = image.to(torch.float32) / 255.0
+    if depth is None:
+        return image
+    if depth.dtype == torch.uint8:
+        depth = torch.clamp(depth.to(torch.float32) / 255.0 * 1000.0,
+                            10.0, 1000.0)
+    return image, depth

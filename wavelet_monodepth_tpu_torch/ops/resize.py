@@ -20,6 +20,16 @@ synthetic mount's low-frequency texture with INTER_CUBIC
     four taps clamped into the image (replicate); within 1e-5 of OpenCV
     on float64.
 
+  * INTER_AREA on uint8 where one axis is enlarged (the synthetic NYU
+    zip's 1242x375 -> 640x480): OpenCV then runs its linear resampler
+    with "area" taps, sx = floor(d * src / dst) and fraction
+    (d + 1) - (sx + 1) * dst / src less its floor (0 where not positive),
+    in 11-bit fixed point: weights round(w * 2048), a horizontal sum in
+    int, then each of the two vertical products taken >> 4, times the
+    weight, >> 16, summed with 2 and >> 2. Bit for bit OpenCV 5.0's
+    result. A reduction on both axes is OpenCV's true area average, which
+    `resize_area_u8` does not do.
+
 INTER_NEAREST is `data/kitti.py::resize_nearest`.
 """
 
@@ -102,3 +112,39 @@ def resize_cubic(a: np.ndarray, width: int, height: int) -> np.ndarray:
     for k in range(1, 4):
         out = out + yw[:, :, k] * rows[yt[:, k]]
     return out
+
+
+def _area_taps(dst: int, src: int):
+    """(left index, right index, left weight, right weight) per output
+    pixel of OpenCV's area-mode linear taps, weights in 1/2048ths."""
+    d = np.arange(dst)
+    sx = np.floor(d * (src / dst)).astype(np.int64)
+    fx = ((d + 1) - (sx + 1) * (dst / src)).astype(np.float32)
+    fx = np.where(fx <= 0, np.float32(0), fx - np.floor(fx))
+    w1 = np.round(fx * np.float32(2048)).astype(np.int64)
+    w0 = np.round((np.float32(1) - fx) * np.float32(2048)).astype(np.int64)
+    return (np.clip(sx, 0, src - 1), np.clip(sx + 1, 0, src - 1), w0, w1)
+
+
+def resize_area_u8(a: np.ndarray, width: int, height: int) -> np.ndarray:
+    """`cv2.resize(a, (width, height), interpolation=cv2.INTER_AREA)` of a
+    uint8 (H, W) or (H, W, C) array that is enlarged on at least one
+    axis (see the module docstring)."""
+    a = np.asarray(a)
+    h, w = a.shape[:2]
+    if a.dtype != np.uint8:
+        raise TypeError(f"resize_area_u8 of a {a.dtype} array")
+    if width <= w and height <= h:
+        raise ValueError("resize_area_u8 does not do OpenCV's area average "
+                         "(a reduction on both axes)")
+    extra = (1,) * (a.ndim - 2)
+    x0, x1, a0, a1 = _area_taps(width, w)
+    s = a.astype(np.int64)
+    rows = (s[:, x0] * a0.reshape((1, width) + extra)
+            + s[:, x1] * a1.reshape((1, width) + extra))
+    y0, y1, b0, b1 = _area_taps(height, h)
+    b0 = b0.reshape((height, 1) + extra)
+    b1 = b1.reshape((height, 1) + extra)
+    out = (((b0 * (rows[y0] >> 4)) >> 16) + ((b1 * (rows[y1] >> 4)) >> 16)
+           + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)

@@ -159,13 +159,12 @@ def main(argv=None, device=None) -> dict:
     line and returns it."""
     from ..ops.sparse import compute_density
     from ..utils import maskgen as mg
-    from ..utils.device import resolve_device
+    from ..utils import device as device_rule
 
     args = parse_args(argv)
-    dev = resolve_device(device if device is not None else args.device)
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    dev = device_rule.resolve_device(device if device is not None
+                                     else args.device)
+    device_rule.pin_float32(dev)
     b, h, w = args.batch, args.height, args.width
     enc, dec, encb, decb = build(dev)
 

@@ -126,7 +126,7 @@ def save_benchmark_pngs(pred_disps: np.ndarray, save_dir: str) -> None:
 def main(argv=None):
     from ..data.splits import readlines, resolve_split_dir
     from ..eval import kitti_eval
-    from ..utils.device import resolve_device
+    from ..utils import device as device_rule
 
     opts, torch_model_path = parse_args(argv)
     if int(opts.eval_mono) + int(opts.eval_stereo) != 1:
@@ -135,7 +135,8 @@ def main(argv=None):
         raise NotImplementedError(
             "--native_decode is not ported yet (ROADMAP.md, Queue 1 item 5: "
             "data/native_loader.py)")
-    device = resolve_device(opts.device)
+    device = device_rule.resolve_device(opts.device)
+    device_rule.pin_float32(device)
     split_dir = resolve_split_dir(opts.eval_split, opts.data_path)
 
     info = None

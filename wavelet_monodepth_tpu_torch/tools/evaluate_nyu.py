@@ -8,12 +8,15 @@ default masked-dense backend, as in the JAX package) and prints abs_rel /
 rmse / log10 / deltas (+ eps_acc / eps_comp with edges); `main` returns
 the row as a dict.
 
-Weights: --torch_model_path, a reference `model.pth` of the DenseNet161
-+ DecoderWave family (`encoder.original_model.features.*`, `decoder.*`);
-without it, the seeded fresh init (seed 0). --load_weights_folder names
-the JAX package's flax checkpoint, which the port cannot read; the NYU
-training slice brings the port's own checkpoint layout. --bfloat16 casts
-the model whole (`utils/precision.py`); outputs come back float32.
+Weights: --load_weights_folder, a `weights_<epoch>` folder of the port's
+NYU trainer (`tools/train_nyu.py`: its `model.pth` in the reference
+layout, any encoder and decoder; `normalize_input` adopted from the
+run's `models/opt.json`, as in JAX); or --torch_model_path, a reference
+`model.pth` of the DenseNet161 + DecoderWave family
+(`encoder.original_model.features.*`, `decoder.*`); without either, the
+seeded fresh init (seed 0). The JAX package's own flax checkpoints are
+not read. --bfloat16 casts the model whole (`utils/precision.py`);
+outputs come back float32.
 
 Usage:
   python -m wavelet_monodepth_tpu_torch.tools.evaluate_nyu \
@@ -95,6 +98,7 @@ def nyu_options(args):
 def load_forward(opts, device, torch_model_path=None, use_pallas=False,
                  capacity_ratio: float = 0.5):
     """The model's forward on `device`, in eval mode, from
+    `opts.load_weights_folder`'s model.pth (the port's NYU checkpoint),
     `torch_model_path` (a reference model.pth) or the seeded fresh init.
     forward(image (N, H, W, 3) float in [0, 1] on `device`, thresh or
     None, mask_override=None) -> the decoder's output dict, float32 also
@@ -106,16 +110,12 @@ def load_forward(opts, device, torch_model_path=None, use_pallas=False,
     from ..utils.precision import cast_floats, wrap_forward_bf16
     from . import torch_import as ti
 
-    if opts.load_weights_folder:
-        raise NotImplementedError(
-            "--load_weights_folder names the JAX package's flax msgpack "
-            "checkpoint, which the port cannot read; the NYU training "
-            "slice brings the port's own NYU checkpoint layout (ROADMAP.md, "
-            "Queue 1 item 4). Export it with the JAX package's "
-            "tools/export_torch.py and pass --torch_model_path")
     encoder, num_ch_enc = make_nyu_encoder(opts)
     decoder = make_nyu_decoder(num_ch_enc, opts)
-    if torch_model_path:
+    if opts.load_weights_folder:
+        ti.load_state_dicts(encoder, decoder, *ti.load_nyu_model_pth(
+            os.path.join(opts.load_weights_folder, "model.pth")))
+    elif torch_model_path:
         if opts.encoder_type != "densenet":
             raise SystemExit("--torch_model_path import currently "
                              "supports the densenet161 family")
@@ -157,13 +157,11 @@ def load_edges(edges_dir: str, n: int) -> np.ndarray:
 
 def main(argv=None):
     from ..eval import nyu_eval
-    from ..utils.device import resolve_device
+    from ..utils import device as device_rule
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    if device.type == "cuda":       # float32 means float32 (no TF32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = device_rule.resolve_device(args.device)
+    device_rule.pin_float32(device)
     opts = nyu_options(args)
     forward = load_forward(opts, device, args.torch_model_path)
 

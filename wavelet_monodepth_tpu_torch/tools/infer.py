@@ -287,10 +287,12 @@ def main(argv=None, device=None):
     from PIL import Image
     from ..ops.geometry import disp_to_depth
     from ..ops.image import resize_bilinear
-    from ..utils.device import resolve_device
+    from ..utils import device as device_rule
 
     args = parse_args(argv)
-    device = resolve_device(device if device is not None else args.device)
+    device = device_rule.resolve_device(device if device is not None
+                                        else args.device)
+    device_rule.pin_float32(device)
     forward, (feed_h, feed_w) = load_model(args, device)
 
     if os.path.isfile(args.image_path):

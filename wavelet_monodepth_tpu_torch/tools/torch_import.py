@@ -17,7 +17,8 @@ state-dict names, so:
     any of the five NYU decoders (depthwise variants included), told
     apart by their trees. `param_trees_from_jax` does the same for
     parameter-shaped trees (a gradient, updated parameters) without BN
-    statistics;
+    statistics, under the KITTI trainer's names (`encoder.`, `depth.`)
+    or the NYU trainer's (`encoder.`, `decoder.`);
   * `load_reference_checkpoint(folder)` reads a reference KITTI
     `encoder.pth` / `depth.pth` pair, and `save_reference_checkpoint`
     writes one; `load_nyu_model_pth(path)` splits a reference NYU
@@ -29,7 +30,11 @@ state-dict names, so:
     unused `norm5` and classifier, and the `height` / `width` /
     `use_stereo` ints, returned as metadata) and fills in BatchNorm's
     `num_batches_tracked`, which the JAX exporter never writes and eval
-    mode never reads.
+    mode never reads;
+  * `load_imagenet_encoder(encoder, sd, encoder_type)` loads a torchvision
+    densenet161 or resnet ImageNet state dict into the port's NYU
+    encoder, the JAX package's `import_densenet_encoder(prefix=
+    "features.")` / `import_resnet_encoder(prefix="")`.
 """
 
 from __future__ import annotations
@@ -43,14 +48,21 @@ import torch.nn as nn
 _META_KEYS = ("height", "width", "use_stereo")
 
 
+def _float(v) -> np.ndarray:
+    """v as a float32 array; a float64 one (a float64 gradient) keeps its
+    precision."""
+    v = np.asarray(v)
+    return v if v.dtype == np.float64 else v.astype(np.float32)
+
+
 def _conv_w(v) -> torch.Tensor:
     """HWIO -> OIHW."""
     return torch.from_numpy(np.ascontiguousarray(
-        np.transpose(np.asarray(v, np.float32), (3, 2, 0, 1))))
+        np.transpose(_float(v), (3, 2, 0, 1))))
 
 
 def _vec(v) -> torch.Tensor:
-    return torch.from_numpy(np.array(v, np.float32))
+    return torch.from_numpy(np.array(_float(v)))
 
 
 def _take_bn(sd: dict, tprefix: str, params: dict, stats):
@@ -237,13 +249,16 @@ def state_dicts_from_jax(enc_vars: dict | None, dec_vars: dict | None):
             None if dec_vars is None else _decoder_state(dec_vars))
 
 
-def param_trees_from_jax(enc_tree: dict, dec_tree: dict) -> dict:
+def param_trees_from_jax(enc_tree: dict, dec_tree: dict,
+                         decoder_scope: str = "depth") -> dict:
     """{port parameter name: tensor} of trees shaped like the encoder's and
     the decoder's params (a gradient or an updated parameter tree), with
-    the encoder's names prefixed `encoder.` and the decoder's `depth.`."""
+    the encoder's names prefixed `encoder.` and the decoder's
+    `<decoder_scope>.`: "depth" for the KITTI trainer, "decoder" for the
+    NYU trainer (the scopes of its model.pth)."""
     out = {f"encoder.{k}": v
            for k, v in _encoder_state({"params": enc_tree}).items()}
-    out.update({f"depth.{k}": v
+    out.update({f"{decoder_scope}.{k}": v
                 for k, v in _decoder_state({"params": dec_tree}).items()})
     return out
 
@@ -309,13 +324,41 @@ def load_nyu_model_pth(path: str):
                  for scope in ("encoder.", "decoder."))
 
 
-def save_nyu_model_pth(path: str, encoder: nn.Module,
-                       decoder: nn.Module) -> None:
-    """Write a reference-layout NYU `model.pth`: both modules' state dicts
-    under `encoder.` / `decoder.`."""
+def nyu_model_state(encoder: nn.Module, decoder: nn.Module) -> dict:
+    """The reference NYU `model.pth` state dict: both modules' state dicts
+    under `encoder.` / `decoder.`, on the CPU."""
     sd = {f"encoder.{k}": v.detach().cpu()
           for k, v in encoder.state_dict().items()}
     sd.update({f"decoder.{k}": v.detach().cpu()
                for k, v in decoder.state_dict().items()})
+    return sd
+
+
+def save_nyu_model_pth(path: str, encoder: nn.Module,
+                       decoder: nn.Module) -> None:
+    """Write a reference-layout NYU `model.pth`."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(sd, path)
+    torch.save(nyu_model_state(encoder, decoder), path)
+
+
+# where a torchvision ImageNet state dict's keys live in the port's NYU
+# encoders: densenet161's `features.*` under `original_model.`, a resnet's
+# body under `encoder.`
+_IMAGENET_SCOPES = {"densenet": ("features.", "original_model.features."),
+                    "resnet": ("", "encoder.")}
+
+
+def load_imagenet_encoder(encoder: nn.Module, sd: dict,
+                          encoder_type: str) -> dict:
+    """Load a torchvision densenet161 / resnet ImageNet state dict into the
+    port's NYU encoder with strict=True, after `_fit`'s fix-ups (the
+    classifier and densenet's norm5 dropped, num_batches_tracked filled).
+    Returns the report {"dropped", "filled"}."""
+    if encoder_type not in _IMAGENET_SCOPES:
+        raise ValueError(f"no ImageNet mapping for {encoder_type!r}")
+    src, dst = _IMAGENET_SCOPES[encoder_type]
+    scoped = {dst + k[len(src):]: v for k, v in sd.items()
+              if k.startswith(src)}
+    fitted, dropped, filled, _ = _fit(encoder, scoped)
+    encoder.load_state_dict(fitted, strict=True)
+    return {"dropped": dropped, "filled": filled}

@@ -34,15 +34,14 @@ def main(argv=None, device=None) -> dict:
     from ..train.kitti import KittiTrainSetup
     from ..utils import checkpoint as ckpt
     from ..utils.config import parse_kitti_args
-    from ..utils.device import resolve_device
+    from ..utils import device as device_rule
     from ..utils.logging import SummaryLogger, TrainTimer
 
     opts = parse_kitti_args(argv)
     opts.validate_for_training()
-    device = resolve_device(device if device is not None else opts.device)
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    device = device_rule.resolve_device(device if device is not None
+                                        else opts.device)
+    device_rule.pin_float32(device)
     log_path = os.path.join(opts.log_dir, opts.model_name)
 
     train_files = read_split(opts.split, "train_files.txt", opts.data_path)

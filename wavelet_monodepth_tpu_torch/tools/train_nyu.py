@@ -1,0 +1,122 @@
+"""NYUv2 training CLI: `NYUv2/train.py:165-352`, on one card.
+
+Counterpart of `wavelet_monodepth_tpu/tools/train_nyu.py`, with its flags
+(`utils/config.parse_nyu_args`) plus --device: the zip in memory
+(`data/nyu.py`), threaded item loading and pinned host-to-device copies
+(`data/loader.py`), the train step (`train/nyu.py`), the reference's
+print every 5 steps, and at every `log_frequency`-th step the train
+losses and one validation batch's losses, drawn from the "test" dataset
+(the same nyu2_train rows with the test transform, as in the reference),
+as TensorBoard scalars. Per epoch it writes
+`<log_dir>/<model_name>/models/weights_<epoch>/{model,adam}.pth` and
+`models/opt.json` (`utils/checkpoint.py`), which
+`tools/evaluate_nyu.py --load_weights_folder` reads;
+`--auto_resume` continues after the newest complete folder and
+`--load_weights_folder` restores one. It runs on the card (--device cuda,
+the default, raises without one) unless --device cpu is given;
+--bfloat16 trains in JAX's mixed precision (`train/nyu.py`), and the
+checkpoints stay float32.
+
+Scalars only: the coefficient images and histograms of the JAX CLI
+(`log_nyu_visuals`) are not ported yet (ROADMAP.md, Queue 1 item 5).
+--data_axis > 1 and the multi-host flags raise (Queue 1 item 6).
+
+Usage:
+  python -m wavelet_monodepth_tpu_torch.tools.train_nyu --data_path \\
+      nyu_data.zip --use_wavelets --encoder_type densenet [--bfloat16]
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+
+def main(argv=None, device=None) -> dict:
+    """Train; returns {"steps", "val_batches", "losses" (the logged train
+    losses), "val_losses", "checkpoints" (folders written)}."""
+    import torch
+
+    from ..data import nyu as nyu_data
+    from ..data.loader import parallel_batches, to_device
+    from ..ops.augment import expand_nyu
+    from ..train.nyu import NyuTrainSetup
+    from ..utils import checkpoint as ckpt
+    from ..utils import device as device_rule
+    from ..utils.config import parse_nyu_args
+    from ..utils.logging import SummaryLogger
+
+    opts = parse_nyu_args(argv)
+    device = device_rule.resolve_device(device if device is not None
+                                        else opts.device)
+    device_rule.pin_float32(device)
+    log_path = os.path.join(opts.log_dir, opts.model_name)
+
+    setup = NyuTrainSetup(opts, device=device)
+    train_ds, test_ds = nyu_data.get_training_testing_data(
+        opts.data_path, is_224=opts.use_224, uint8_feed=not opts.float_feed)
+    state = setup.init_state(torch.Generator().manual_seed(0))
+    start_epoch = 0
+    resume_folder = opts.load_weights_folder
+    if opts.auto_resume and not resume_folder:
+        resume_folder = ckpt.latest_checkpoint(log_path, ckpt.NYU_FILES)
+        if resume_folder:
+            start_epoch = int(os.path.basename(resume_folder)
+                              .split("_")[1]) + 1
+            print(f"auto-resume: restoring {resume_folder}, "
+                  f"continuing at epoch {start_epoch}")
+    if resume_folder:
+        ckpt.load_nyu_checkpoint(resume_folder, state)
+
+    n_batches = len(train_ds) // opts.batch_size
+    step = start_epoch * n_batches
+    state.step = step
+    logger = SummaryLogger(log_path)
+    train_src = parallel_batches(train_ds, opts.batch_size,
+                                 num_workers=opts.num_workers)
+    val_src = parallel_batches(test_ds, opts.batch_size,
+                               num_workers=opts.num_workers, shuffle=False)
+    train_iter = to_device(train_src, device)
+    val_iter = to_device(val_src, device)
+    summary = {"steps": 0, "val_batches": 0, "losses": [],
+               "val_losses": [], "checkpoints": []}
+    try:
+        for epoch in range(start_epoch, opts.epochs):
+            t_end = time.time()
+            for i in range(n_batches):
+                batch = next(train_iter)
+                losses = setup.train_step(state, batch["image"],
+                                          batch["depth"])
+                summary["steps"] += 1
+                if i % 5 == 0:
+                    print(f"Epoch: [{epoch}][{i}/{n_batches}]\t"
+                          f"Time {time.time() - t_end:.3f}\t "
+                          f"Loss {float(losses['loss']):.4f}")
+                if i % opts.log_frequency == 0:
+                    host = {k: float(v) for k, v in losses.items()}
+                    summary["losses"].append(host)
+                    logger.scalars("train", host, step)
+                    vbatch = next(val_iter)
+                    outputs = setup.eval_step(state, vbatch["image"])
+                    _, vdepth = expand_nyu(vbatch["image"], vbatch["depth"])
+                    vlosses = {k: float(v) for k, v in setup.compute_losses(
+                        outputs, setup.targets(vdepth)).items()}
+                    summary["val_batches"] += 1
+                    summary["val_losses"].append(vlosses)
+                    logger.scalars("val", vlosses, step)
+                t_end = time.time()
+                step += 1
+            folder = ckpt.save_nyu_checkpoint(log_path, epoch, state, opts)
+            summary["checkpoints"].append(folder)
+            print(f"saved checkpoint to {folder}")
+    finally:
+        train_iter.close()
+        val_iter.close()
+        train_src.close()
+        val_src.close()
+        logger.close()
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -145,8 +145,9 @@ class KittiTrainSetup:
         opts = self.opts
         state.encoder.train(train)
         enc_p, dec_p = params if params is not None else (None, None)
-        feats = _call(state.encoder, enc_p, inputs[("color_aug", "0", 0)])
-        outputs = _call(state.decoder, dec_p, feats)
+        feats = call_module(state.encoder, enc_p,
+                            inputs[("color_aug", "0", 0)])
+        outputs = call_module(state.decoder, dec_p, feats)
         outputs = losses_kitti.generate_images_pred(inputs, outputs, opts)
         if opts.use_depth_hints:
             losses = losses_kitti.compute_losses_hints(inputs, outputs, opts,
@@ -187,7 +188,7 @@ class KittiTrainSetup:
                             train=False)
 
 
-def _call(module: torch.nn.Module, params: Optional[dict], *args):
+def call_module(module: torch.nn.Module, params: Optional[dict], *args):
     """module(*args), with `params` in place of its parameters if given."""
     if params is None:
         return module(*args)

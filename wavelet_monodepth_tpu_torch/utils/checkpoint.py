@@ -1,12 +1,16 @@
-"""Per-epoch checkpoints in the reference's layout.
+"""Per-epoch checkpoints in the reference's layouts.
 
-The reference writes `<log>/models/weights_<epoch>/{encoder,depth,
+KITTI: the reference writes `<log>/models/weights_<epoch>/{encoder,depth,
 adam}.pth` and `<log>/models/opt.json` (`KITTI/trainer.py:722-785`);
 `encoder.pth` carries the feed height / width / use_stereo beside the
-state dict, which the inference tools read back. The JAX package stores
-one flax state file per folder instead (`utils/checkpoint.py`); the port
-writes the reference's files, so its `tools/infer.py` and the reference
-load them, and `latest_checkpoint` serves `--auto_resume`.
+state dict, which the inference tools read back. NYU:
+`<log>/models/weights_<epoch>/{model,adam}.pth`, `model.pth` being the
+reference's one state dict under `encoder.` / `decoder.`
+(`NYUv2/load_save_utils.py:11-52`), and the same `opt.json`. The JAX
+package stores one flax state file per folder instead
+(`utils/checkpoint.py`); the port writes the reference's files, so its
+`tools/infer.py`, its `tools/evaluate_nyu.py` and the reference load
+them, and `latest_checkpoint` serves `--auto_resume`.
 
 Each file is written to a temporary name and renamed, so a folder cut
 off mid-save lacks a file and `latest_checkpoint` skips it.
@@ -22,6 +26,7 @@ import torch
 from .config import save_opts
 
 _FILES = ("encoder.pth", "depth.pth", "adam.pth")
+NYU_FILES = ("model.pth", "adam.pth")
 
 
 def _save(obj, path: str) -> None:
@@ -67,6 +72,11 @@ def load_checkpoint(folder: str, state,
             if k in sd:
                 meta[k] = int(sd.pop(k))
         module.load_state_dict(sd, strict=True)
+    _load_adam(folder, state, device)
+    return meta
+
+
+def _load_adam(folder: str, state, device) -> None:
     adam = os.path.join(folder, "adam.pth")
     if os.path.exists(adam):
         sd = torch.load(adam, map_location=device, weights_only=True)
@@ -76,12 +86,36 @@ def load_checkpoint(folder: str, state,
         else:
             print("Can't load Adam: its parameter groups differ; "
                   "Adam is randomly initialized")
-    return meta
 
 
-def latest_checkpoint(log_path: str) -> Optional[str]:
-    """Newest weights_<epoch> folder that holds all its files; a folder
-    whose save was cut off is skipped for the one before."""
+def save_nyu_checkpoint(log_path: str, epoch: int, state, opts) -> str:
+    """Write models/weights_<epoch>/ (model.pth, adam.pth last) and
+    models/opt.json. Returns the folder."""
+    from ..tools.torch_import import nyu_model_state
+    models = os.path.join(log_path, "models")
+    folder = os.path.join(models, f"weights_{epoch}")
+    os.makedirs(folder, exist_ok=True)
+    _save(nyu_model_state(state.encoder, state.decoder),
+          os.path.join(folder, "model.pth"))
+    _save(state.optimizer.state_dict(), os.path.join(folder, "adam.pth"))
+    save_opts(opts, os.path.join(models, "opt.json"))
+    return folder
+
+
+def load_nyu_checkpoint(folder: str, state) -> None:
+    """Restore model.pth (strict, after `tools/torch_import`'s fix-ups)
+    and, when its parameter groups match, Adam into `state` in place."""
+    from ..tools import torch_import as ti
+    ti.load_state_dicts(state.encoder, state.decoder,
+                        *ti.load_nyu_model_pth(os.path.join(folder,
+                                                            "model.pth")))
+    _load_adam(folder, state, next(state.encoder.parameters()).device)
+
+
+def latest_checkpoint(log_path: str, files=_FILES) -> Optional[str]:
+    """Newest weights_<epoch> folder that holds all of `files` (the KITTI
+    set by default; NYU_FILES for the NYU trainer's); a folder whose save
+    was cut off is skipped for the one before."""
     models_dir = os.path.join(log_path, "models")
     if not os.path.isdir(models_dir):
         return None
@@ -89,6 +123,6 @@ def latest_checkpoint(log_path: str) -> Optional[str]:
     folders.sort(key=lambda d: int(d.split("_")[1]), reverse=True)
     for d in folders:
         folder = os.path.join(models_dir, d)
-        if all(os.path.exists(os.path.join(folder, f)) for f in _FILES):
+        if all(os.path.exists(os.path.join(folder, f)) for f in files):
             return folder
     return None
