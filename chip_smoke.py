@@ -167,10 +167,38 @@ any failure raises and exits non-zero:
      device time by ATen op, the costliest convs forward and backward
      with their shapes and cuDNN kernels).
 
+ 14. kitti_pose: the remaining KITTI models on phase 8's mount. (a)
+     tools/train_kitti.main trains M+S + depth hints (ResNet18 + the
+     wavelet decoder, frame_ids 0 -1 1 + stereo, the separate_resnet pose
+     net in "pairs" mode, --stereo_warp_kernel on) at 640x192, B=12, for
+     3 steps and one validation batch on a split of the mount's interior
+     frames; its K3 launches equal phase 8's stereo-only run's (the pose
+     warps take F.grid_sample, as JAX's take its gather) and no other
+     kernel of the repo launches; its checkpoint holds pose_encoder.pth
+     and pose.pth, float32 only; ms per step (float32 and bf16 mixed
+     precision), each first step's peak memory and a profile (idle
+     share); the losses of a train-mode forward at B=1 on the card and
+     on the host within 1e-4 relative. (b) tools/evaluate_pose.main
+     scores that checkpoint on a fabricated odometry sequence 09 (8
+     PNGs, poses/09.txt), on the card and on the host: finite ATE, equal
+     within 1e-4. (c) monocular PoseCNN in "all" mode (the
+     velocity-scaled warp), (d) the baseline DepthDecoder (stereo +
+     hints): one B=12 train step each, its losses within 1e-4 relative
+     of the host's forward on the same weights and batch; the baseline's
+     B=12 eval forward, card vs host disparities within 1e-4. (e)
+     tools/train_kitti.main trains MobileNetV2 from scratch (stereo +
+     hints, 3 steps at B=12). (f) tools/precompute_depth_hints.
+     fuse_depths at 1024x320 on 12 seeded candidate maps (SGBM-like:
+     the scene's depth times smooth factors, with holes), card vs host:
+     equal chosen depths except where the two choices' losses lie within
+     1e-5 or within the two sides' own disagreement on them; its time on
+     the card. One {"phase": "kitti_pose"} line per check.
+
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
-summary (K1/K4 with the NYU path's `launches_nyu` and `*_nyu` B=8 sums)
-and the last is {"ok": true, "device": {...}}.
+summary (K1/K4 with the NYU path's `launches_nyu` and `*_nyu` B=8 sums,
+K3 with the M+S run's `launches_kitti_pose`) and the last is
+{"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
 """
@@ -3249,6 +3277,376 @@ def phase_nyu_train(dev, tmp: str) -> None:
           "seconds": time.perf_counter() - t_phase})
 
 
+# --- phase 14: the remaining KITTI models ------------------------------------
+
+POSE_SPLIT = "chip_pose"
+ODOM_FRAMES = 8
+HINT_H, HINT_W = 320, 1024
+
+
+def write_pose_split(root: str) -> None:
+    """Split "chip_pose" of phase 8's mount: its interior frames 1..34 (each
+    line has frames k - 1 and k + 1, and its own side's hints), then the
+    first two again: 36 lines, 3 steps at B=12; val: the first 12."""
+    lines = [f"{FOLDER} {k} {'l' if k % 2 == 0 else 'r'}"
+             for k in range(1, 35)]
+    lines += lines[:2]
+    split = os.path.join(root, "splits", POSE_SPLIT)
+    os.makedirs(split, exist_ok=True)
+    for name, part in (("train_files.txt", lines),
+                       ("val_files.txt", lines[:TRAIN_B])):
+        with open(os.path.join(split, name), "w") as f:
+            f.write("\n".join(part) + "\n")
+
+
+def pose_argv(root: str, log: str, mono: bool = False,
+              extra=()) -> list:
+    """M+S + depth hints (or monocular) with the pose nets, at the
+    flagship's size and batch, on the interior split."""
+    argv = ["--data_path", root, "--split", POSE_SPLIT, "--log_dir", log,
+            "--batch_size", str(TRAIN_B), "--height", str(H), "--width",
+            str(W), "--frame_ids", "0", "-1", "1", "--use_wavelets",
+            "--weights_init", "scratch", "--num_epochs", "1",
+            "--log_frequency", "250", "--num_workers", "4"]
+    if not mono:
+        argv += ["--use_stereo", "--use_depth_hints", "--stereo_warp_kernel",
+                 "on"]
+    return argv + list(extra)
+
+
+def pose_batch(root: str, dev):
+    """One B=12 M+S batch (frames 0, -1, 1 and s, hints) of the interior
+    split, without augmentation, on the card."""
+    from wavelet_monodepth_tpu_torch.data import kitti as kd
+    from wavelet_monodepth_tpu_torch.data.loader import (parallel_batches,
+                                                        to_device)
+    from wavelet_monodepth_tpu_torch.data.splits import read_split
+    lines = read_split(POSE_SPLIT, "train_files.txt", root)
+    ds = kd.KittiRawDataset(root, lines, H, W, [0, -1, 1, "s"], [0, 1, 2, 3],
+                            is_train=False, use_depth_hints=True,
+                            aug_scales=(0,), other_frame_scales=(0,),
+                            device_augment=True)
+    stream = parallel_batches(ds, TRAIN_B, num_workers=4)
+    try:
+        return next(to_device(stream, dev))
+    finally:
+        stream.close()
+
+
+def pose_setup(argv, device, gen_seed: int = 0):
+    """(setup, state, noise) of the training CLI's flags on `device`."""
+    import torch
+    from wavelet_monodepth_tpu_torch.train.kitti import KittiTrainSetup
+    from wavelet_monodepth_tpu_torch.utils.config import parse_kitti_args
+    setup = KittiTrainSetup(parse_kitti_args(argv), steps_per_epoch=1000,
+                            device=device)
+    state = setup.init_state(torch.Generator().manual_seed(gen_seed))
+    noise = torch.Generator(device=device).manual_seed(0)
+    return setup, state, noise
+
+
+def host_forward_losses(argv, batch) -> dict:
+    """The losses of a train-mode forward on the host, on the seed-0
+    weights and `batch` (moved to the host)."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import augment
+    cpu = torch.device("cpu")
+    setup, state, noise = pose_setup(argv, cpu)
+    with torch.no_grad():
+        _, losses = setup.forward(
+            state, augment.expand_batch({k: v.cpu() for k, v in
+                                         batch.items()}), noise, train=True)
+    return {k: float(v) for k, v in losses.items()}
+
+
+def max_rel(a: dict, b: dict) -> float:
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b)
+
+
+def pose_state_dtypes(state) -> list:
+    import torch
+    tensors = [t for m in state.modules().values()
+               for t in list(m.parameters()) + list(m.buffers())]
+    tensors += [v for d in state.optimizer.state.values()
+                for v in d.values() if torch.is_tensor(v)]
+    return sorted({str(t.dtype) for t in tensors if t.is_floating_point()})
+
+
+def write_odom_tree(root: str) -> None:
+    """A KITTI odometry layout: sequence 09 as ODOM_FRAMES 1241x376 PNGs
+    (maskgen scenes), poses/09.txt (forward motion with a slow yaw) and
+    the split splits/odom/test_files_09.txt."""
+    import numpy as np
+    from PIL import Image
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    h, w = 376, 1241
+    disp = mg.synthetic_depth_scene(ODOM_FRAMES, h, w, seed=3)
+    imgs = (mg.scene_image(disp, seed=3) * 255).astype(np.uint8)
+    seq = os.path.join(root, "sequences", "09", "image_2")
+    os.makedirs(seq)
+    for f in range(ODOM_FRAMES):
+        Image.fromarray(imgs[f]).save(os.path.join(seq, f"{f:06d}.png"))
+    os.makedirs(os.path.join(root, "poses"))
+    rows = []
+    for i in range(ODOM_FRAMES):
+        th = 0.02 * i
+        t = np.array([[np.cos(th), 0, np.sin(th), 0.1 * i],
+                      [0, 1, 0, 0.01 * i],
+                      [-np.sin(th), 0, np.cos(th), 0.5 * i]])
+        rows.append(" ".join(f"{v:.9e}" for v in t.reshape(-1)))
+    with open(os.path.join(root, "poses", "09.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    split = os.path.join(root, "splits", "odom")
+    os.makedirs(split)
+    with open(os.path.join(split, "test_files_09.txt"), "w") as f:
+        f.write("".join(f"9 {k} l\n" for k in range(ODOM_FRAMES - 1)))
+
+
+def hint_fusion_inputs(seed: int = 0):
+    """A stereo pair of a maskgen scene at 1024x320 (the right view shifted
+    by the scene's disparity, uint8) and 12 seeded candidate depth maps
+    shaped as SGBM's are: the scene's depth times a smooth factor in
+    0.7-1.3 per candidate, with holes (0) where a second smooth field
+    falls below 0.1."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from wavelet_monodepth_tpu_torch.utils import maskgen as mg
+    disp = mg.synthetic_depth_scene(1, HINT_H, HINT_W, seed=seed)[0, ..., 0]
+    base = (mg.scene_image(disp[None, ..., None], seed=seed)[0]
+            * 255).astype(np.uint8)
+    d_px = 1.0 + disp * 0.03 * HINT_W
+    src_x = np.clip(np.round(np.arange(HINT_W)[None] + d_px).astype(int),
+                    0, HINT_W - 1)
+    lookup = np.take_along_axis(base, src_x[..., None].repeat(3, -1), axis=1)
+    depth = 0.58 * HINT_W * 0.1 / d_px
+
+    def smooth(n):
+        g = torch.Generator().manual_seed(seed + n)
+        low = torch.rand(12, 1, HINT_H // 32, HINT_W // 32, generator=g)
+        return F.interpolate(low, size=(HINT_H, HINT_W), mode="bilinear",
+                             align_corners=False)[:, 0].numpy()
+    depths = depth[None] * (0.7 + 0.6 * smooth(1))
+    depths[smooth(2) < 0.1] = 0.0
+    return depths.astype(np.float32), base, lookup
+
+
+def phase_kitti_pose(dev, root: str, tmp: str, stereo_launches: dict):
+    """The remaining KITTI models on the card (module docstring, phase
+    14). Returns the K3 launches of the M+S run."""
+    import numpy as np
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import augment, warp
+    from wavelet_monodepth_tpu_torch.tools import evaluate_pose, train_kitti
+    from wavelet_monodepth_tpu_torch.tools import precompute_depth_hints \
+        as hints_tool
+
+    t_phase = time.perf_counter()
+
+    def note(obj: dict) -> None:
+        emit({**obj, "phase_seconds": time.perf_counter() - t_phase})
+    write_pose_split(root)
+
+    # (a) M+S + depth hints through the training CLI
+    log = os.path.join(tmp, "log_pose")
+    torch.cuda.synchronize()
+    warp.reset_launches()
+    before = kernel_launch_total()
+    t0 = time.perf_counter()
+    summary = train_kitti.main(pose_argv(root, log), device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(warp.launches)
+    others = kernel_launch_total() - before - sum(launches.values())
+    folder = summary["checkpoints"][-1]
+    files = sorted(os.listdir(folder))
+    dtypes = float_dtypes_of(*[os.path.join(folder, f) for f in files])
+    note({"phase": "kitti_pose", "check": "ms_train_main",
+          "steps": summary["steps"], "val_batches": summary["val_batches"],
+          "batch": TRAIN_B, "res": [H, W], "k3_launches": launches,
+          "k3_launches_stereo_only": stereo_launches,
+          "other_kernel_launches": others, "main_seconds": seconds,
+          "checkpoint_files": files, "checkpoint_float_dtypes": dtypes,
+          "losses": summary["losses"], **_card})
+    require(summary["steps"] == 3 and summary["val_batches"] == 1, summary)
+    require(all(np.isfinite(v) for d in summary["losses"] for v in d.values()),
+            ("finite M+S losses", summary["losses"]))
+    require(launches == stereo_launches and others == 0,
+            ("M+S kernel launches", launches, stereo_launches, others))
+    require({"pose_encoder.pth", "pose.pth", "adam.pth"} <= set(files)
+            and dtypes == ["torch.float32"], (files, dtypes))
+
+    # M+S times: f32 and bf16 steps on one batch, peak memory, profiles
+    t0 = time.perf_counter()
+    batch = pose_batch(root, dev)
+    load_seconds = time.perf_counter() - t0
+    runs, peak, first = {}, {}, {}
+    for name, extra in (("f32", ()), ("bf16", ("--bfloat16",))):
+        runs[name] = pose_setup(pose_argv(root, log, extra=extra), dev)
+        setup, state, noise = runs[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        first[name] = float(setup.train_step(state, batch, noise)["loss"])
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    steps = {name: (lambda r=r: r[0].train_step(r[1], batch, r[2]))
+             for name, r in runs.items()}
+    t = time_variants(steps, iters=2)
+    idle = {}
+    for name, fn in steps.items():
+        spans, _, by_op, busy, wall_ms = trace_calls(fn, 2)
+        top = sorted(((v[0], k) for k, v in by_op.items()
+                      if k.startswith("aten::")), reverse=True)[:8]
+        idle[name] = {"device_busy_ms_per_step": busy / 2e3 if spans
+                      else None, "wall_ms_per_step": wall_ms / 2,
+                      "idle_share": 1.0 - busy / 1e3 / wall_ms if spans
+                      else None, "kernels_per_step": len(spans) / 2,
+                      "top_aten_ops_ms_per_step": [[k, v / 2e3]
+                                                   for v, k in top]}
+    bf16_dtypes = pose_state_dtypes(runs["bf16"][1])
+    note({"phase": "kitti_pose", "check": "ms_time_train_step",
+          "batch": TRAIN_B, "res": [H, W], "tf32": False,
+          "stereo_warp_kernel": "on", "first_step_loss": first,
+          "peak_memory_gib_first_step": peak,
+          "peak_memory_note": "the f32 state stays resident for bf16's",
+          "batch_load_seconds": load_seconds,
+          "profile": idle, "bf16_state_float_dtypes": bf16_dtypes, **t,
+          **_card})
+    require(bf16_dtypes == ["torch.float32"], bf16_dtypes)
+    del runs, steps
+    torch.cuda.empty_cache()
+
+    # card vs host: a train-mode forward at B=1
+    b1 = {k: v[:1] for k, v in batch.items()}
+    setup, state, noise = pose_setup(pose_argv(root, log), dev)
+    with torch.no_grad():
+        _, card = setup.forward(state, augment.expand_batch(b1), noise,
+                                train=True)
+    card = {k: float(v) for k, v in card.items()}
+    host = host_forward_losses(pose_argv(root, log), b1)
+    rel = max_rel(card, host)
+    note({"phase": "kitti_pose", "check": "ms_card_vs_cpu_b1",
+          "loss_max_rel_diff": rel, "losses_card": card, "losses_host": host,
+          **_card})
+    require(rel <= 1e-4, ("M+S card vs host", rel))
+    del setup, state
+
+    # (b) odometry eval of the M+S checkpoint, card and host
+    odom = os.path.join(tmp, "kitti_odom")
+    write_odom_tree(odom)
+    ates, secs = {}, {}
+    before = kernel_launch_total()
+    for side, d in (("card", str(dev)), ("host", "cpu")):
+        t0 = time.perf_counter()
+        out = evaluate_pose.main(["--data_path", odom, "--eval_split",
+                                  "odom_9", "--load_weights_folder", folder,
+                                  "--device", d])
+        secs[side] = time.perf_counter() - t0
+        ates[side] = (out["ate_mean"], out["ate_std"])
+    launched = kernel_launch_total() - before
+    note({"phase": "kitti_pose", "check": "evaluate_pose",
+          "frames": ODOM_FRAMES, "ate": ates, "seconds": secs,
+          "kernel_launches": launched, **_card})
+    require(all(np.isfinite(v) for v in ates["card"]) and launched == 0,
+            ates)
+    require(abs(ates["card"][0] - ates["host"][0])
+            <= 1e-4 * max(1.0, ates["host"][0]), ("card vs host ATE", ates))
+
+    # (c) PoseCNN "all" and (d) the baseline: one B=12 step, card vs host,
+    # on the M+S batch without the frames and inputs each does not read
+    mono = {k: v for k, v in batch.items()
+            if not (k[0] == "color_u8" and k[1] == "s")
+            and k[0] not in ("stereo_T", "depth_hint", "depth_hint_mask",
+                             "disp_hint")}
+    stereo = {k: v for k, v in batch.items()
+              if not (k[0] == "color_u8" and k[1] in ("-1", "1"))}
+    for name, argv, b in (
+            ("posecnn_all", pose_argv(root, log, mono=True, extra=(
+                "--pose_model_type", "posecnn", "--pose_model_input",
+                "all")), mono),
+            ("baseline", train_argv(root, log, "on") + ["--no-use_wavelets"],
+             stereo)):
+        setup, state, noise = pose_setup(argv, dev)
+        before = kernel_launch_total()
+        card = {k: float(v) for k, v in
+                setup.train_step(state, b, noise).items()}
+        torch.cuda.synchronize()
+        k3 = kernel_launch_total() - before
+        host = host_forward_losses(argv, b)
+        rel = max_rel(card, host)
+        entry = {"phase": "kitti_pose", "check": f"{name}_step",
+                 "batch": TRAIN_B, "res": [H, W], "loss_max_rel_diff": rel,
+                 "kernel_launches": k3, "losses_card": card,
+                 "losses_host": host}
+        if name == "baseline":
+            # the B=12 eval forward of the seed-0 weights, card vs host
+            _, state_c, _ = pose_setup(argv, dev)
+            _, state_h, _ = pose_setup(argv, torch.device("cpu"))
+            x = augment.expand_batch(b)[("color_aug", "0", 0)]
+            with torch.no_grad():
+                dc = state_c.decoder(state_c.encoder.eval()(x))
+                dh = state_h.decoder(state_h.encoder.eval()(x.cpu()))
+            entry["eval_disp_max_abs_diff"] = max(
+                float((dc[k].cpu() - dh[k]).abs().max()) for k in dh)
+            require(entry["eval_disp_max_abs_diff"] <= 1e-4, entry)
+            del state_c, state_h
+        note({**entry, **_card})
+        require(rel <= 1e-4 and all(np.isfinite(v) for v in card.values()),
+                entry)
+        del setup, state
+
+    # (e) MobileNetV2 from scratch through the training CLI
+    t0 = time.perf_counter()
+    mb = train_kitti.main(train_argv(root, os.path.join(tmp, "log_mbv2"),
+                                     "auto") + ["--encoder_type",
+                                                "mobilenet"], device=dev)
+    note({"phase": "kitti_pose", "check": "mobilenet_train_main",
+          "steps": mb["steps"], "batch": TRAIN_B, "res": [H, W],
+          "main_seconds": time.perf_counter() - t0, "losses": mb["losses"],
+          **_card})
+    require(mb["steps"] == 36 // TRAIN_B and mb["val_batches"] == 1
+            and all(np.isfinite(v) for d in mb["losses"]
+                    for v in d.values()), mb)
+
+    # (f) hint fusion at 1024x320, card vs host
+    depths, base, lookup = hint_fusion_inputs()
+    card = hints_tool.fuse_depths(depths, base, lookup, -1, dev)
+    host = hints_tool.fuse_depths(depths, base, lookup, -1, "cpu")
+    # a pixel may choose differently only where its two choices' losses
+    # lie within 1e-5, or within the two sides' own disagreement on them
+    # (float32 rounding of the projection at 1024 wide moves a sample by
+    # ~1e-4 px, and a loss by up to ~1e-4 at a sharp edge)
+    with torch.no_grad():
+        losses = {side: hints_tool.fusion_losses(
+            torch.from_numpy(depths).to(d), torch.from_numpy(base).to(d),
+            torch.from_numpy(lookup).to(d), -1).cpu().numpy()
+            for side, d in (("card", dev), ("host", "cpu"))}
+    pick = {side: losses[side].argmin(axis=0) for side in losses}
+
+    def at(side, idx):
+        return np.take_along_axis(losses[side], idx[None], axis=0)[0]
+    gap = np.abs(at("host", pick["card"]) - at("host", pick["host"]))
+    noise = (np.abs(at("card", pick["card"]) - at("host", pick["card"]))
+             + np.abs(at("card", pick["host"]) - at("host", pick["host"])))
+    tie = (gap <= 1e-5) | (gap <= noise)
+    loss_gap = float(np.abs(losses["card"] - losses["host"]).max())
+    differ = card != host
+    t = time_variants({"fuse_depths": lambda: hints_tool.fuse_depths(
+        depths, base, lookup, -1, dev)}, iters=3)
+    note({"phase": "kitti_pose", "check": "hint_fusion",
+          "res": [HINT_H, HINT_W], "candidates": 12,
+          "pixels_differ": int(differ.sum()),
+          "pixels_differ_not_tie": int((differ & ~tie).sum()),
+          "pixels_differ_gap_over_1e-5": int((differ & (gap > 1e-5)).sum()),
+          "loss_max_abs_diff_card_vs_host": loss_gap,
+          "valid_share": float((card > 0).mean()), **t, **_card})
+    require(not (differ & ~tie).any(), ("hint fusion card vs host",
+                                        int((differ & ~tie).sum())))
+    emit({"phase": "kitti_pose_done",
+          "seconds": time.perf_counter() - t_phase, **_card})
+    return launches
+
+
 def main():
     dev = phase_device()
     sys.path.insert(0, REPO)
@@ -3333,13 +3731,16 @@ def main():
         batch = phase_train_contracts(dev, root)
         warp_ms = phase_train_times(dev, root, batch)
         phase_eval(dev, ckpt, tmp)
+        pose_launches = phase_kitti_pose(dev, root, tmp, warp_launches)
         nyu = phase_nyu(dev, errs, tmp)
         phase_nyu_train(dev, tmp)
     # ms: one K3 launch at (12, 192, 640, 3) (backward: the training
-    # path's, no source-row pass); launches: the train main path's
+    # path's, no source-row pass); launches: the train main path's;
+    # launches_kitti_pose: the M+S train main path's (phase 14)
     kernels += [{
         "name": k, "route": "cuda", "source": SOURCES["banded_warp"],
         "replaces": WARP_REPLACES, "launches": warp_launches[k],
+        "launches_kitti_pose": pose_launches[k],
         "max_abs_err": errs[k], **warp_ms[k]}
         for k in ("banded_warp_fwd", "banded_warp_bwd")]
     # K1 / K4: the NYU serving path's launches (the sparse requests of

@@ -222,8 +222,8 @@ def mixed_step():
     stats = {k: v.clone() for k, v in tstate.encoder.state_dict().items()}
     # the forward alone, for its dtypes (it moves the BN statistics again,
     # so they were kept above)
-    params = tuple({n: p.detach().to(BF16) for n, p in m.named_parameters()}
-                   for m in (tstate.encoder, tstate.decoder))
+    params = {name: {n: p.detach().to(BF16) for n, p in m.named_parameters()}
+              for name, m in tstate.modules().items()}
     ins = {k: v.to(BF16) if k[0] == "color_aug" else v
            for k, v in taug.expand_batch(tbatch).items()}
     with torch.no_grad():

@@ -323,6 +323,30 @@ def test_evaluate_depth_main_equals_jax(mount, weights, mode, monkeypatch):
     assert ours["total_ops_mean"] == ref["total_ops_mean"]
 
 
+def test_evaluate_depth_main_baseline_equals_jax(mount, tmp_path,
+                                                 monkeypatch):
+    """The baseline DepthDecoder (no --use_wavelets) from a reference
+    folder, dense with post-processing: the row equals JAX's."""
+    from wavelet_monodepth_tpu_torch.models.decoders_kitti import \
+        DepthDecoder
+    folder = str(tmp_path / "baseline")
+    g = torch.Generator().manual_seed(12)
+    enc = init_params(ResnetEncoder(18), g)
+    ti.save_reference_checkpoint(folder, enc,
+                                 init_params(DepthDecoder(enc.num_ch_enc), g),
+                                 H, W)
+    argv = ["--data_path", mount, "--batch_size", "3", "--eval_stereo",
+            "--height", str(H), "--width", str(W), "--post_process"]
+    monkeypatch.setenv("WMD_TORCH_MODEL_PATH", folder)
+    ref = jed.main(argv)
+    monkeypatch.delenv("WMD_TORCH_MODEL_PATH")
+    ours = ted.main(argv + ["--device", "cpu", "--torch_model_path", folder])
+    assert list(ours["metrics"]) == list(ref["metrics"])
+    np.testing.assert_allclose(list(ours["metrics"].values()),
+                               list(ref["metrics"].values()), rtol=0,
+                               atol=1e-4)
+
+
 def test_evaluate_depth_main_flags(mount, weights, tmp_path):
     """--save_pred_disps into --load_weights_folder (with coefficients),
     --ext_disp_to_eval rescoring them to the same row, --no_eval,

@@ -277,8 +277,58 @@ def test_losses_mdp_match_jax(kw):
 
 
 def test_pose_frames_raise():
-    o = TOptions(use_stereo=True, frame_ids=(0, -1, 1), height=H, width=W)
+    """The pose-frame warps, which raised before the pose nets were
+    ported: M+S (frames 0, -1, 1 and s) with the pose net's cam_T_cam,
+    generate_images_pred and compute_losses_mdp against JAX's."""
+    fields = dict(use_stereo=True, frame_ids=(0, -1, 1), use_wavelets=True,
+                  height=H, width=W, batch_size=N)
+    jo, to = JOptions(**fields), TOptions(**fields)
     inputs, outputs = _scene_inputs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.generate_images_pred({k: _t(v) for k, v in inputs.items()},
-                                {k: _t(v) for k, v in outputs.items()}, o)
+    rs = np.random.RandomState(5)
+    for fid in ("-1", "1"):
+        # smoothed, as camera images are: the pose warps rotate, so float32
+        # rounding of a sample position differs more than in the
+        # row-banded stereo warp, and a smooth texture keeps its effect
+        # on the colour below it
+        tex = rs.rand(N, H, W, 3)
+        for _ in range(2):
+            tex = (tex + np.roll(tex, 1, 1) + np.roll(tex, 1, 2)) / 3.0
+        inputs[("color", fid, 0)] = tex.astype(np.float32)
+    aa = (0.02 * rs.randn(2, N, 1, 1, 3)).astype(np.float32)
+    tr = (0.3 * rs.randn(2, N, 1, 1, 3)).astype(np.float32)
+
+    def pose_T(geo, asarray):
+        out = {}
+        for i, f_i in enumerate((-1, 1)):
+            out[("cam_T_cam", 0, f_i)] = geo.transformation_from_parameters(
+                asarray(aa[i])[:, 0], asarray(tr[i])[:, 0], invert=f_i < 0)
+        return out
+
+    rng = jax.random.PRNGKey(3)
+
+    @jax.jit
+    def ref_fn(ins, outs, r):
+        pose = pose_T(jgeo, jnp.asarray)
+        outs = jl.generate_images_pred(ins, dict(outs), jo, pose)
+        return jl.compute_losses_mdp(ins, outs, jo, r), outs
+
+    ref, ref_out = ref_fn({k: jnp.asarray(v) for k, v in inputs.items()},
+                          {k: jnp.asarray(v) for k, v in outputs.items()},
+                          rng)
+    tin = {k: _t(v) for k, v in inputs.items()}
+    tout = tl.generate_images_pred(tin, {k: _t(v) for k, v in
+                                         outputs.items()}, to,
+                                   pose_T(tgeo, _t))
+    ours = tl.compute_losses_mdp(tin, tout, to,
+                                 _jax_noise(rng, (N, H, W, 3)))
+    assert set(ours) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(float(ours[k]), float(ref[k]), rtol=1e-5,
+                                   err_msg=k)
+    # warped images within 1e-4, as test_losses_hints_match_jax
+    for fid in ("-1", "1", "s"):
+        for s in (0, 3):
+            k = ("color", fid, s)
+            np.testing.assert_allclose(tout[k].numpy(),
+                                       np.asarray(ref_out[k]), rtol=0,
+                                       atol=1e-4, err_msg=str(k))

@@ -89,6 +89,10 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.train.losses_nyu",
     "wavelet_monodepth_tpu_torch.train.nyu",
     "wavelet_monodepth_tpu_torch.tools.train_nyu",
+    "wavelet_monodepth_tpu_torch.models.pose",
+    "wavelet_monodepth_tpu_torch.eval.pose_eval",
+    "wavelet_monodepth_tpu_torch.tools.evaluate_pose",
+    "wavelet_monodepth_tpu_torch.tools.precompute_depth_hints",
 ]
 
 

@@ -289,15 +289,28 @@ def test_options_flag_for_flag():
     assert t.all_frame_ids == (0, "s") and not t.use_pose_net
 
 
+def _baseline_polyphase():
+    from wavelet_monodepth_tpu_torch.models.decoders_kitti import \
+        DepthDecoder
+    DepthDecoder((64, 64, 128, 256, 512), use_polyphase=True)
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(native_decode=True), "native_decode"),
-    (dict(frame_ids=(0, -1, 1)), "pose"),
-    (dict(encoder_type="mobilenet"), "mobilenet"),
-    (dict(use_wavelets=False), "DepthDecoder"),
+    (dict(frame_ids=(0, -1, 1), pose_model_type="shared"), "'shared'"),
+    (dict(encoder_type="mobilenet", weights_init="pretrained",
+          imagenet_weights_path="resnet18.pth"), "MobileNetV2"),
+    (_baseline_polyphase, "use_polyphase"),
     (dict(data_axis=2), "data_axis")])
 def test_unported_features_raise(kw, match):
+    """What the port does not run raises: the options JAX cannot run
+    either ("shared" pose nets, MobileNetV2's ImageNet start), the
+    TPU-only polyphase upconv, and the tools of ROADMAP queue 1 item 6."""
     with pytest.raises(NotImplementedError, match=match):
-        TSetup(TOptions(**dict(FIELDS, **kw), device="cpu")).init_state()
+        if callable(kw):
+            kw()
+        else:
+            TSetup(TOptions(**dict(FIELDS, **kw), device="cpu")).init_state()
 
 
 def test_setup_follows_opts_device():

@@ -1,7 +1,9 @@
-"""KITTI wavelet decoder, dense and sparse (threshold-gated) in one module.
+"""KITTI depth decoders: the wavelet decoder, dense and sparse
+(threshold-gated) in one module, and monodepth2's baseline DepthDecoder.
 
 Counterpart of `KittiWaveletDecoder` in
-`wavelet_monodepth_tpu/models/decoders_kitti.py:85-431`. Dense and sparse
+`wavelet_monodepth_tpu/models/decoders_kitti.py:85-431` and of its
+`DepthDecoder` (`:53-82`, described at the class below). Dense and sparse
 share one set of weights, held in `decoder`, an nn.ModuleList in the
 reference's order, so a reference `depth.pth` loads with `strict=True`:
 for i = 4..1: upconv_i_0, upconv_i_1, (waveconv_4_ll at i == 4),
@@ -42,7 +44,7 @@ from ..ops.compact import (compact_wave_stage, default_tile_shape,
 from ..ops.convops import conv1x1, conv3x3
 from ..ops.sites import site_wave_stage, stage_site_overflow
 from ..ops.wavelets import haar_idwt
-from .layers import (ConvBlock, WaveConv, check_backend_dtype,
+from .layers import (Conv3x3, ConvBlock, WaveConv, check_backend_dtype,
                      sparse_backend, upsample_concat)
 
 Tensor = torch.Tensor
@@ -52,6 +54,53 @@ NUM_CH_DEC = (16, 32, 64, 128, 256)
 
 def _idwt(yl: Tensor, yh: Tensor) -> Tensor:
     return haar_idwt(yl, yh[..., 0:1], yh[..., 1:2], yh[..., 2:3])
+
+
+class DepthDecoder(nn.Module):
+    """monodepth2's baseline decoder (`depth_decoder.py:18-69`): five
+    upconv stages (ConvBlocks with zero padding, as the reference's
+    use_refl=False there), nearest x2 and the skip between them, and per
+    scale in `scales` a reflect-padded 3x3 `dispconv` with a sigmoid.
+    Outputs ("disp", s), NHWC. The convs sit in `decoder`, an
+    nn.ModuleList in the reference's order (upconv_i_0, upconv_i_1 for
+    i = 4..0, then the dispconvs), so its `depth.pth` loads with
+    `strict=True`. `use_polyphase` is not ported."""
+
+    def __init__(self, num_ch_enc: Sequence[int],
+                 scales: Sequence[int] = (0, 1, 2, 3),
+                 use_skips: bool = True, use_polyphase: bool = False):
+        super().__init__()
+        if use_polyphase:
+            raise NotImplementedError(
+                "use_polyphase is not ported (ROADMAP.md, Queue 1 item 7: "
+                "upconv1_polyphase is a TPU-only workaround)")
+        self.num_ch_enc = tuple(num_ch_enc)
+        self.scales = tuple(scales)
+        self.use_skips = use_skips
+        blocks = {}
+        cin = self.num_ch_enc[-1]
+        for i in range(4, -1, -1):
+            blocks[f"upconv_{i}_0"] = ConvBlock(cin, NUM_CH_DEC[i], "zero")
+            skip = self.num_ch_enc[i - 1] if (use_skips and i > 0) else 0
+            blocks[f"upconv_{i}_1"] = ConvBlock(NUM_CH_DEC[i] + skip,
+                                                NUM_CH_DEC[i], "zero")
+            cin = NUM_CH_DEC[i]
+        for s in self.scales:
+            blocks[f"dispconv_{s}"] = Conv3x3(NUM_CH_DEC[s], 1, "reflect")
+        self.decoder = nn.ModuleList(blocks.values())
+        self.blocks = dict(blocks)      # by name; registered via `decoder`
+
+    def forward(self, features: Sequence[Tensor]) -> dict:
+        outputs = {}
+        x = features[-1]
+        for i in range(4, -1, -1):
+            x = self.blocks[f"upconv_{i}_0"](x)
+            skip = features[i - 1] if (self.use_skips and i > 0) else None
+            x = self.blocks[f"upconv_{i}_1"](upsample_concat(x, skip))
+            if i in self.scales:
+                outputs[("disp", i)] = torch.sigmoid(
+                    self.blocks[f"dispconv_{i}"](x))
+        return outputs
 
 
 class KittiWaveletDecoder(nn.Module):

@@ -1,20 +1,20 @@
 """Network factory: counterpart of `wavelet_monodepth_tpu/models/factory.py`
 (`KITTI/networks/network_constructors.py:12-64` and the NYU `Model`
-dispatch, `NYUv2/model.py:12-71`) for what the port has: the ResNet
-(18/34/50/101/152), MobileNetV2 and DenseNet161 encoders, the KITTI
-wavelet decoder and the five NYU decoders. The pose networks and the
-baseline KITTI decoder raise naming the ROADMAP item that ports them.
+dispatch, `NYUv2/model.py:12-71`): the ResNet (18/34/50/101/152),
+MobileNetV2 and DenseNet161 encoders, the KITTI wavelet and baseline
+decoders, the pose networks and the five NYU decoders.
 """
 
 from __future__ import annotations
 
-from .decoders_kitti import KittiWaveletDecoder
+from .decoders_kitti import DepthDecoder, KittiWaveletDecoder
 from .decoders_nyu import (NyuDecoder, NyuDecoder224, NyuDecoderWave,
                            NyuDecoderWave224)
 from .densenet import NUM_CH_ENC as DENSENET_CH
 from .densenet import DenseNet161Encoder
 from .mobilenetv2 import MobileNetV2Encoder
 from .mobilenetv2 import num_ch_enc as mobilenet_ch
+from .pose import PoseCNN, PoseDecoder
 from .resnet import ResnetEncoder
 from .resnet import num_ch_enc as resnet_ch
 
@@ -39,11 +39,35 @@ def make_depth_encoder(opts):
 
 
 def make_depth_decoder(num_ch_enc, opts):
-    if not opts.use_wavelets:
+    """`network_constructors.py:30-40`: the wavelet decoder (its sparse
+    mode included) or the baseline DepthDecoder."""
+    if opts.use_wavelets:
+        return KittiWaveletDecoder(num_ch_enc=tuple(num_ch_enc))
+    return DepthDecoder(num_ch_enc=tuple(num_ch_enc),
+                        scales=tuple(opts.scales))
+
+
+def make_posenet(opts, num_pose_frames: int, num_input_frames: int):
+    """(pose encoder or None, pose decoder), `network_constructors.py:
+    43-64`: "separate_resnet" is a ResNet over num_pose_frames stacked
+    frames + PoseDecoder, "posecnn" a PoseCNN over 2 frames ("pairs") or
+    all of them ("all"). "shared" raises: JAX's cannot run either."""
+    if opts.pose_model_type == "separate_resnet":
+        enc = ResnetEncoder(num_layers=opts.num_layers,
+                            num_input_images=num_pose_frames)
+        return enc, PoseDecoder(num_ch_enc=resnet_ch(opts.num_layers),
+                                num_input_features=1,
+                                num_frames_to_predict_for=2)
+    if opts.pose_model_type == "posecnn":
+        n = num_input_frames if opts.pose_model_input == "all" else 2
+        return None, PoseCNN(num_input_frames=n)
+    if opts.pose_model_type == "shared":
         raise NotImplementedError(
-            "the baseline DepthDecoder (no --use_wavelets) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 3: remaining KITTI models)")
-    return KittiWaveletDecoder(num_ch_enc=tuple(num_ch_enc))
+            "pose_model_type='shared' is not ported: the JAX package's "
+            "make_posenet hands the raw frames to a PoseDecoder and its "
+            "_predict_poses has no 'shared' branch, so JAX's init_state "
+            "raises (ROADMAP.md, Queue 3: JAX's 'shared' pose mode)")
+    raise NotImplementedError(opts.pose_model_type)
 
 
 def make_nyu_encoder(opts):

@@ -1,9 +1,10 @@
 """ResNet encoders (18/34/50/101/152) emitting the 5-level feature pyramid
 the decoders use.
 
-Counterpart of `wavelet_monodepth_tpu/models/resnet.py` (the multi-image
-pose encoder aside). torchvision's topology and names under the
-reference's `encoder.` scope, so a reference `encoder.pth` loads into it:
+Counterpart of `wavelet_monodepth_tpu/models/resnet.py`. torchvision's
+topology and names under the reference's `encoder.` scope, so a
+reference `encoder.pth` (or the pose net's `pose_encoder.pth`) loads
+into it:
 conv7x7/2 -> [relu feat0] -> maxpool3/2 -> layer1..4 at strides 4..32,
 BN eps 1e-5, input normalised as (x - 0.45) / 0.225 (unless
 `normalize_input=False`, the NYU default). ResNet18/34 stack
@@ -11,6 +12,8 @@ BasicBlocks, 50/101/152 Bottlenecks (1x1, 3x3 carrying the stride as in
 torchvision v1.5, 1x1 at 4x width), so `num_ch_enc` is
 (64, 64, 128, 256, 512) or (64, 256, 512, 1024, 2048). Takes NHWC images
 and returns NHWC features; inside, convs run on channels_last NCHW views.
+`num_input_images=n` is the pose encoder (`resnet_encoder.py:17-59`):
+the stem takes n frames stacked on the channel axis, 3n channels.
 
 The JAX encoder folds the input normalisation into the stem's BN at
 inference (`resnet.py:107-140`), a TPU micro-optimisation equal to the
@@ -121,9 +124,10 @@ class Bottleneck(nn.Module):
 class _ResNet(nn.Module):
     """torchvision's ResNet body without the classifier."""
 
-    def __init__(self, num_layers: int):
+    def __init__(self, num_layers: int, num_input_images: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = nn.Conv2d(3 * num_input_images, 64, 7, 2, 3,
+                               bias=False)
         self.bn1 = BatchNorm2d(64, eps=1e-5)
         block = Bottleneck if _BOTTLENECK[num_layers] else BasicBlock
         chans = num_ch_enc(num_layers)
@@ -139,13 +143,20 @@ class ResnetEncoder(nn.Module):
     """Returns [feat0 (H/2), feat1 (H/4), ..., feat4 (H/32)], NHWC.
     BN follows the module's mode: call `.eval()` for inference."""
 
-    def __init__(self, num_layers: int = 18, normalize_input: bool = True):
+    def __init__(self, num_layers: int = 18, normalize_input: bool = True,
+                 num_input_images: int = 1):
         super().__init__()
         self.num_ch_enc = num_ch_enc(num_layers)
         self.normalize_input = normalize_input
-        self.encoder = _ResNet(num_layers)
+        self.num_input_images = num_input_images
+        self.encoder = _ResNet(num_layers, num_input_images)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        if x.shape[-1] != 3 * self.num_input_images:
+            raise ValueError(
+                f"ResnetEncoder(num_input_images={self.num_input_images}) "
+                f"expects {3 * self.num_input_images} input channels, got "
+                f"{x.shape[-1]}")
         if self.normalize_input:
             x = (x - 0.45) / 0.225
         e = self.encoder

@@ -97,10 +97,14 @@ def backproject_depth(depth: Tensor, inv_k: Tensor) -> Tensor:
 def project_3d(points: Tensor, k: Tensor, t: Tensor, height: int,
                width: int, eps: float = 1e-7) -> Tensor:
     """Camera points (N, 4, HW) -> normalised sample grid (N, H, W, 2) in
-    [-1, 1], last dim (x, y)."""
+    [-1, 1], last dim (x, y). The products run in the promoted dtype of
+    their operands, as jnp.matmul promotes (a bfloat16 pose under mixed
+    precision meets float32 intrinsics)."""
     n = points.shape[0]
-    p = torch.matmul(k, t)[:, :3, :]
-    cam = torch.matmul(p, points)                 # (N, 3, HW)
+    dt = torch.promote_types(k.dtype, t.dtype)
+    p = torch.matmul(k.to(dt), t.to(dt))[:, :3, :]
+    dt = torch.promote_types(p.dtype, points.dtype)
+    cam = torch.matmul(p.to(dt), points.to(dt))   # (N, 3, HW)
     pix = cam[:, :2, :] / (cam[:, 2:3, :] + eps)
     pix = pix.reshape(n, 2, height, width).permute(0, 2, 3, 1)
     sx = pix[..., 0] / (width - 1)

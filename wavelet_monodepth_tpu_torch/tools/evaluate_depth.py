@@ -9,6 +9,8 @@ split (dense, with --post_process the flip fusion; --use_sparse
 against the split's gt_depths.npz and prints the seven-metric row.
 --bfloat16 casts the model whole (`utils/precision.py`). The decoder
 runs its default sparse backend (masked dense), as in the JAX package.
+Without --use_wavelets the folder holds the baseline DepthDecoder
+(monodepth2's, `models/decoders_kitti.DepthDecoder`), always dense.
 
 The feed ships uint8 frames, which the forward scales on the card;
 --host_augment ships float32 instead. Runs on --device (cuda, which

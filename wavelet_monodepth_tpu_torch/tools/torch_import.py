@@ -3,7 +3,8 @@ port's modules.
 
 Counterpart of the export half of
 `wavelet_monodepth_tpu/tools/torch_import.py` (`export_resnet_encoder`,
-`export_kitti_wavelet_decoder`, `export_densenet_encoder`,
+`export_kitti_wavelet_decoder`, `export_kitti_baseline_decoder`,
+`export_pose_decoder`, `export_pose_cnn`, `export_densenet_encoder`,
 `export_nyu_wave_decoder`, and the inverse of
 `import_mobilenetv2_encoder`), written again here so the port imports
 nothing of the JAX package. The port's modules carry the reference's
@@ -12,18 +13,25 @@ state-dict names, so:
   * `state_dicts_from_jax(enc_vars, dec_vars)` turns JAX variables
     (nested dicts of numpy arrays) into the port's encoder and decoder
     state dicts, which are, under the reference's `encoder.` / `decoder.`
-    scopes, key for key what the JAX exporter writes; it takes the ResNet,
-    MobileNetV2 and DenseNet161 encoders and the KITTI wavelet decoder or
-    any of the five NYU decoders (depthwise variants included), told
-    apart by their trees. `param_trees_from_jax` does the same for
-    parameter-shaped trees (a gradient, updated parameters) without BN
-    statistics, under the KITTI trainer's names (`encoder.`, `depth.`)
-    or the NYU trainer's (`encoder.`, `decoder.`);
+    scopes, key for key what the JAX exporter writes; it takes the ResNet
+    (the multi-image pose encoder too), MobileNetV2 and DenseNet161
+    encoders and the KITTI wavelet or baseline decoder or any of the
+    five NYU decoders (depthwise variants included), told apart by their
+    trees; `pose_state_dict_from_jax` takes a PoseDecoder's or a
+    PoseCNN's params to the reference's `net.<i>` / `pose_conv` names.
+    `param_trees_from_jax` does the same for parameter-shaped trees (a
+    gradient, updated parameters) without BN statistics, under the KITTI
+    trainer's names (`encoder.`, `depth.`, `pose_encoder.`, `pose.`) or
+    the NYU trainer's (`encoder.`, `decoder.`);
   * `load_reference_checkpoint(folder)` reads a reference KITTI
     `encoder.pth` / `depth.pth` pair, and `save_reference_checkpoint`
-    writes one; `load_nyu_model_pth(path)` splits a reference NYU
-    `model.pth` (`encoder.original_model.features.*`, `decoder.*`) into
-    the two modules' state dicts, and `save_nyu_model_pth` writes one;
+    writes one; `load_pose_checkpoint(folder)` /
+    `save_pose_checkpoint` do the same for `pose_encoder.pth` /
+    `pose.pth` (the reference's `encoder.`-scoped pose encoder; the JAX
+    exporter's unscoped one is read too); `load_nyu_model_pth(path)`
+    splits a reference NYU `model.pth` (`encoder.original_model.
+    features.*`, `decoder.*`) into the two modules' state dicts, and
+    `save_nyu_model_pth` writes one;
   * `load_state_dicts(encoder, decoder, enc_sd, dec_sd)` loads either
     with `strict=True` after two reported fix-ups: it drops what the port
     has no module for (torchvision's `encoder.fc.*` classifier, DenseNet's
@@ -34,7 +42,10 @@ state-dict names, so:
   * `load_imagenet_encoder(encoder, sd, encoder_type)` loads a torchvision
     densenet161 or resnet ImageNet state dict into the port's NYU
     encoder, the JAX package's `import_densenet_encoder(prefix=
-    "features.")` / `import_resnet_encoder(prefix="")`.
+    "features.")` / `import_resnet_encoder(prefix="")`;
+    `multiimage_imagenet(sd, n)` makes the pose encoder's start from it
+    (`import_resnet_encoder_multiimage`: the stem kernel tiled n times
+    over the input channels and divided by n).
 """
 
 from __future__ import annotations
@@ -219,12 +230,33 @@ def _nyu_decoder_state(params: dict) -> dict:
     return sd
 
 
+def _baseline_decoder_state(params: dict) -> dict:
+    """DepthDecoder params -> `decoder.<idx>.`: upconv_i_0, upconv_i_1 for
+    i = 4..0, then the dispconvs by scale (JAX's
+    `export_kitti_baseline_decoder`)."""
+    sd: dict = {}
+    idx = 0
+    for i in range(4, -1, -1):
+        for j in (0, 1):
+            _conv_to(sd, f"decoder.{idx}.conv.conv",
+                     params[f"upconv_{i}_{j}"]["conv"])
+            idx += 1
+    for s in sorted(int(k.split("_")[1]) for k in params
+                    if k.startswith("dispconv_")):
+        _conv_to(sd, f"decoder.{idx}.conv", params[f"dispconv_{s}"])
+        idx += 1
+    return sd
+
+
 def _decoder_state(variables: dict) -> dict:
     """KittiWaveletDecoder params -> the reference's `decoder.<idx>.`
-    ModuleList names; an NYU decoder's -> its named convs."""
+    ModuleList names; the baseline DepthDecoder's likewise; an NYU
+    decoder's -> its named convs."""
     params = variables["params"]
     if "up1" in params:
         return _nyu_decoder_state(params)
+    if "upconv_0_0" in params:
+        return _baseline_decoder_state(params)
     sd: dict = {}
     idx = 0
     for i in range(4, 0, -1):
@@ -249,17 +281,48 @@ def state_dicts_from_jax(enc_vars: dict | None, dec_vars: dict | None):
             None if dec_vars is None else _decoder_state(dec_vars))
 
 
+# PoseDecoder's convs in the reference's ModuleList order
+_POSE_DECODER_CONVS = ("squeeze", "pose_0", "pose_1", "pose_2")
+
+
+def pose_state_dict_from_jax(variables: dict) -> dict:
+    """A PoseDecoder's params (squeeze, pose_0..2 -> `net.0..3`) or a
+    PoseCNN's (conv_0..6 -> `net.0..6`, pose_conv) -> the reference's
+    `pose.pth` names (JAX's `export_pose_decoder` / `export_pose_cnn`)."""
+    params = variables["params"]
+    sd: dict = {}
+    if "conv_0" in params:
+        i = 0
+        while f"conv_{i}" in params:
+            _conv_to(sd, f"net.{i}", params[f"conv_{i}"])
+            i += 1
+        _conv_to(sd, "pose_conv", params["pose_conv"])
+        return sd
+    for i, name in enumerate(_POSE_DECODER_CONVS):
+        _conv_to(sd, f"net.{i}", params[name])
+    return sd
+
+
 def param_trees_from_jax(enc_tree: dict, dec_tree: dict,
-                         decoder_scope: str = "depth") -> dict:
+                         decoder_scope: str = "depth",
+                         pose_encoder_tree: dict | None = None,
+                         pose_tree: dict | None = None) -> dict:
     """{port parameter name: tensor} of trees shaped like the encoder's and
     the decoder's params (a gradient or an updated parameter tree), with
     the encoder's names prefixed `encoder.` and the decoder's
     `<decoder_scope>.`: "depth" for the KITTI trainer, "decoder" for the
-    NYU trainer (the scopes of its model.pth)."""
+    NYU trainer (the scopes of its model.pth); the pose nets' trees,
+    where given, under `pose_encoder.` and `pose.`."""
     out = {f"encoder.{k}": v
            for k, v in _encoder_state({"params": enc_tree}).items()}
     out.update({f"{decoder_scope}.{k}": v
                 for k, v in _decoder_state({"params": dec_tree}).items()})
+    if pose_encoder_tree is not None:
+        out.update({f"pose_encoder.{k}": v for k, v in _encoder_state(
+            {"params": pose_encoder_tree}).items()})
+    if pose_tree is not None:
+        out.update({f"pose.{k}": v for k, v in pose_state_dict_from_jax(
+            {"params": pose_tree}).items()})
     return out
 
 
@@ -313,6 +376,31 @@ def save_reference_checkpoint(folder: str, encoder: nn.Module,
                os.path.join(folder, "depth.pth"))
 
 
+def load_pose_checkpoint(folder: str):
+    """(pose_encoder.pth, pose.pth) state dicts of a reference folder, on
+    the CPU, pose_encoder.pth under the reference's `encoder.` scope (its
+    ResnetEncoder's): the JAX exporter writes it unscoped
+    (`export_torch.py`, `prefix=""`), and such a file gets the scope."""
+    enc, pose = (torch.load(os.path.join(folder, f), map_location="cpu",
+                            weights_only=True)
+                 for f in ("pose_encoder.pth", "pose.pth"))
+    if not any(k.startswith("encoder.") for k in enc):
+        enc = {f"encoder.{k}": v for k, v in enc.items()}
+    return enc, pose
+
+
+def save_pose_checkpoint(folder: str, pose_encoder: nn.Module | None,
+                         pose: nn.Module) -> None:
+    """Write the reference's pose_encoder.pth (when there is a pose
+    encoder: PoseCNN has none) and pose.pth into `folder`."""
+    os.makedirs(folder, exist_ok=True)
+    for name, module in (("pose_encoder", pose_encoder), ("pose", pose)):
+        if module is not None:
+            torch.save({k: v.detach().cpu()
+                        for k, v in module.state_dict().items()},
+                       os.path.join(folder, f"{name}.pth"))
+
+
 def load_nyu_model_pth(path: str):
     """(encoder state dict, decoder state dict) of a reference NYU
     `model.pth` (one state dict under the `encoder.` and `decoder.`
@@ -348,10 +436,22 @@ _IMAGENET_SCOPES = {"densenet": ("features.", "original_model.features."),
                     "resnet": ("", "encoder.")}
 
 
+def multiimage_imagenet(sd: dict, num_input_images: int) -> dict:
+    """A torchvision resnet ImageNet state dict for the pose encoder over
+    `num_input_images` stacked frames: conv1's kernel tiled that many
+    times over its input channels and divided by the count, the
+    reference's `resnet_multiimage_input` (`resnet_encoder.py:55`)."""
+    out = dict(sd)
+    w = sd["conv1.weight"]
+    out["conv1.weight"] = torch.cat([w] * num_input_images,
+                                    dim=1) / num_input_images
+    return out
+
+
 def load_imagenet_encoder(encoder: nn.Module, sd: dict,
                           encoder_type: str) -> dict:
     """Load a torchvision densenet161 / resnet ImageNet state dict into the
-    port's NYU encoder with strict=True, after `_fit`'s fix-ups (the
+    port's encoder with strict=True, after `_fit`'s fix-ups (the
     classifier and densenet's norm5 dropped, num_batches_tracked filled).
     Returns the report {"dropped", "filled"}."""
     if encoder_type not in _IMAGENET_SCOPES:

@@ -10,11 +10,19 @@ one) unless --device cpu is given. --bfloat16 trains in bf16 mixed
 precision (`train/kitti.py`); the master parameters, Adam's moments and
 the BN statistics stay float32, and so do the checkpoints.
 
+Monocular and mono+stereo runs (--frame_ids 0 -1 1, with or without
+--use_stereo) train the pose networks beside the depth model
+(--pose_model_type separate_resnet | posecnn, --pose_model_input pairs |
+all); the loader reads each line's neighbouring frames k-1 and k+1.
+
 Usage:
   python -m wavelet_monodepth_tpu_torch.tools.train_kitti --data_path ... \\
       --use_stereo --frame_ids 0 --use_depth_hints --use_wavelets \\
       --split eigen_full --model_name wavelets_r18 [--stereo_warp_kernel on] \\
       [--bfloat16]
+  python -m wavelet_monodepth_tpu_torch.tools.train_kitti --data_path ... \\
+      --use_stereo --frame_ids 0 -1 1 --use_depth_hints --use_wavelets \\
+      --split eigen_zhou --model_name ms_r18
 """
 
 from __future__ import annotations
@@ -74,7 +82,8 @@ def main(argv=None, device=None) -> dict:
     start_epoch = opts.start_epoch
     resume_folder = opts.load_weights_folder
     if opts.auto_resume and not resume_folder:
-        resume_folder = ckpt.latest_checkpoint(log_path)
+        resume_folder = ckpt.latest_checkpoint(
+            log_path, ckpt.checkpoint_files(state))
         if resume_folder:
             start_epoch = int(os.path.basename(resume_folder)
                               .split("_")[1]) + 1

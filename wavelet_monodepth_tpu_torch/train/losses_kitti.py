@@ -9,7 +9,10 @@ the total (the reference drops it).
 The "s"-frame and depth-hint warps take the banded warp
 (`ops/warp.py`, the K3 kernel on the card) when `stereo_warp_kernel` is
 "on", else `F.grid_sample` ("auto" and "off": the JAX package's "auto"
-always selects its gather, `BANDED_WARP_MIN_WIDTH = inf`).
+always selects its gather, `BANDED_WARP_MIN_WIDTH = inf`). The temporal
+(pose) frames always take `F.grid_sample` (`ops/image.
+grid_sample_border`), as JAX's take its gather: their grids are not
+row-banded, so K3 does not apply.
 
 The automask tie-break noise is 1e-5 * N(0, 1) per loss scale. `noise` is
 a `torch.Generator` (on the batch's device) to draw it from, or a mapping
@@ -22,7 +25,8 @@ from typing import Dict, Mapping, Optional, Union
 
 import torch
 
-from ..ops.geometry import backproject_depth, disp_to_depth, project_3d
+from ..ops.geometry import (backproject_depth, disp_to_depth, project_3d,
+                            transformation_from_parameters)
 from ..ops.image import get_smooth_loss, grid_sample_border, resize_bilinear
 from ..ops.ssim import ssim as ssim_fn
 from ..ops.warp import grid_sample_border_banded
@@ -66,10 +70,29 @@ def _stereo_sampler(opts):
             else grid_sample_border)
 
 
-def generate_images_pred(inputs: Dict, outputs: Dict, opts) -> Dict:
+def _pose_frame_T(pose_T: Dict, frame_id: int, depth: Tensor, opts):
+    """The warp pose of temporal frame `frame_id`: the pose net's
+    cam_T_cam, or under PoseCNN the velocity-scaled pose
+    (`trainer.py:353-364`): T recomputed per scale with the translation
+    times this scale's mean inverse depth. Like JAX and the reference, it
+    reads [:, 0] in both pose modes (even "all", whose cam_T_cam read
+    [:, i])."""
+    if opts.pose_model_type != "posecnn":
+        return pose_T[("cam_T_cam", 0, frame_id)]
+    aa = pose_T[("axisangle", 0, frame_id)]
+    tr = pose_T[("translation", 0, frame_id)]
+    mean_inv_depth = (1.0 / depth).mean(dim=(1, 2), keepdim=True)  # N,1,1,1
+    return transformation_from_parameters(
+        aa[:, 0], tr[:, 0] * mean_inv_depth[:, 0], invert=frame_id < 0)
+
+
+def generate_images_pred(inputs: Dict, outputs: Dict, opts,
+                         pose_T: Optional[Dict] = None) -> Dict:
     """Warp the source frames into the target view per loss scale. Adds
     ("depth", 0, s), ("sample", fid, s), ("color", fid, s) and, under depth
-    hints, ("color_depth_hint", "s", 0)."""
+    hints, ("color_depth_hint", "s", 0). `pose_T` holds the pose net's
+    ("axisangle" / "translation" / "cam_T_cam", 0, fid) of the temporal
+    frames (`train/kitti.predict_poses`)."""
     h_full, w_full = opts.height, opts.width
     for scale in opts.loss_scales:
         disp = outputs[("disp", scale)]
@@ -82,17 +105,17 @@ def generate_images_pred(inputs: Dict, outputs: Dict, opts) -> Dict:
         outputs[("depth", 0, scale)] = depth
         h, w = depth.shape[1], depth.shape[2]
         for frame_id in opts.all_frame_ids[1:]:
-            if frame_id != "s":
-                raise NotImplementedError(
-                    "pose-frame warps are not ported yet (ROADMAP.md, "
-                    "Queue 1 item 3: pose networks and M+S warps)")
+            if frame_id == "s":
+                t, sampler = inputs[("stereo_T",)], _stereo_sampler(opts)
+            else:
+                t = _pose_frame_T(pose_T, frame_id, depth, opts)
+                sampler = grid_sample_border
             cam_points = backproject_depth(depth,
                                            inputs[("inv_K", source_scale)])
-            pix = project_3d(cam_points, inputs[("K", source_scale)],
-                             inputs[("stereo_T",)], h, w)
-            outputs[("sample", "s", scale)] = pix
-            outputs[("color", "s", scale)] = _stereo_sampler(opts)(
-                inputs[("color", "s", source_scale)], pix)
+            pix = project_3d(cam_points, inputs[("K", source_scale)], t, h, w)
+            outputs[("sample", str(frame_id), scale)] = pix
+            outputs[("color", str(frame_id), scale)] = sampler(
+                inputs[("color", str(frame_id), source_scale)], pix)
 
     if opts.use_depth_hints and "s" in opts.all_frame_ids[1:]:
         depth = inputs[("depth_hint",)]

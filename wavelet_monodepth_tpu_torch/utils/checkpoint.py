@@ -1,7 +1,9 @@
 """Per-epoch checkpoints in the reference's layouts.
 
 KITTI: the reference writes `<log>/models/weights_<epoch>/{encoder,depth,
-adam}.pth` and `<log>/models/opt.json` (`KITTI/trainer.py:722-785`);
+pose_encoder,pose,adam}.pth` (the pose files when the run has pose nets;
+PoseCNN has no pose_encoder) and `<log>/models/opt.json`
+(`KITTI/trainer.py:722-785`);
 `encoder.pth` carries the feed height / width / use_stereo beside the
 state dict, which the inference tools read back. NYU:
 `<log>/models/weights_<epoch>/{model,adam}.pth`, `model.pth` being the
@@ -29,6 +31,12 @@ _FILES = ("encoder.pth", "depth.pth", "adam.pth")
 NYU_FILES = ("model.pth", "adam.pth")
 
 
+def checkpoint_files(state) -> tuple:
+    """The files a complete KITTI checkpoint of `state` holds: one per
+    network (`TrainState.modules`) and adam.pth."""
+    return tuple(f"{name}.pth" for name in state.modules()) + ("adam.pth",)
+
+
 def _save(obj, path: str) -> None:
     torch.save(obj, path + ".tmp")
     os.replace(path + ".tmp", path)
@@ -41,29 +49,31 @@ def _cpu(sd: dict) -> dict:
 
 def save_checkpoint(log_path: str, epoch: int, state, opts) -> str:
     """Write models/weights_<epoch>/ (encoder.pth with the feed size,
-    depth.pth, adam.pth last) and models/opt.json. Returns the folder."""
+    depth.pth, pose_encoder.pth and pose.pth where the state has them,
+    adam.pth last) and models/opt.json. Returns the folder."""
     models = os.path.join(log_path, "models")
     folder = os.path.join(models, f"weights_{epoch}")
     os.makedirs(folder, exist_ok=True)
-    enc = _cpu(state.encoder.state_dict())
-    enc.update(height=int(opts.height), width=int(opts.width),
-               use_stereo=bool(opts.use_stereo))
-    _save(enc, os.path.join(folder, "encoder.pth"))
-    _save(_cpu(state.decoder.state_dict()), os.path.join(folder, "depth.pth"))
+    for name, module in state.modules().items():
+        sd = _cpu(module.state_dict())
+        if name == "encoder":
+            sd.update(height=int(opts.height), width=int(opts.width),
+                      use_stereo=bool(opts.use_stereo))
+        _save(sd, os.path.join(folder, f"{name}.pth"))
     _save(state.optimizer.state_dict(), os.path.join(folder, "adam.pth"))
     save_opts(opts, os.path.join(models, "opt.json"))
     return folder
 
 
 def load_checkpoint(folder: str, state,
-                    models_to_load=("encoder", "depth")) -> dict:
-    """Restore the chosen models (and Adam, when its file is there and the
-    parameter groups match) into `state` in place, `trainer.py:753-785`.
-    Returns the feed-size ints of encoder.pth."""
+                    models_to_load=("encoder", "depth", "pose_encoder",
+                                    "pose")) -> dict:
+    """Restore the chosen models that the state has (and Adam, when its
+    file is there and the parameter groups match) into `state` in place,
+    `trainer.py:753-785`. Returns the feed-size ints of encoder.pth."""
     meta = {}
     device = next(state.encoder.parameters()).device
-    for name, module in (("encoder", state.encoder),
-                         ("depth", state.decoder)):
+    for name, module in state.modules().items():
         if name not in models_to_load:
             continue
         sd = torch.load(os.path.join(folder, f"{name}.pth"),
@@ -114,8 +124,9 @@ def load_nyu_checkpoint(folder: str, state) -> None:
 
 def latest_checkpoint(log_path: str, files=_FILES) -> Optional[str]:
     """Newest weights_<epoch> folder that holds all of `files` (the KITTI
-    set by default; NYU_FILES for the NYU trainer's); a folder whose save
-    was cut off is skipped for the one before."""
+    set without pose nets by default; `checkpoint_files(state)` for a run
+    with them; NYU_FILES for the NYU trainer's); a folder whose save was
+    cut off is skipped for the one before."""
     models_dir = os.path.join(log_path, "models")
     if not os.path.isdir(models_dir):
         return None
