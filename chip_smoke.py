@@ -8,9 +8,11 @@ conv kernel, the block IO kernels of the compact backend), training
 (stereo + depth hints at batch 12 with the banded warp kernel), the
 eigen-split evaluation (ResNet18 640x192 and ResNet50 1024x320), the
 NYUv2 serving and evaluation path (DenseNet161 + the wavelet decoder at
-640x480) and its training (the same model at batch 8), plus the fused
-wave stage kernel on the serving slice's own stage inputs, in phases;
-any failure raises and exits non-zero:
+640x480) and its training (the same model at batch 8), the 1024x320 B=6
+training of the published HR rows, the training visuals, a soak with a
+kill and a resume, the sparsity-curve tools and the native decoder,
+plus the fused wave stage kernel on the serving slice's own stage
+inputs, in phases; any failure raises and exits non-zero:
 
   1. device: needs CUDA (raises otherwise), turns TF32 off, prints the
      card's name and power limit;
@@ -193,11 +195,61 @@ any failure raises and exits non-zero:
      equal chosen depths except where the two choices' losses lie within
      1e-5 or within the two sides' own disagreement on them; its time on
      the card. One {"phase": "kitti_pose"} line per check.
+ 15. kitti_hr_train: the published HR rows' training, stereo + hints at
+     1024x320, B=6, on split "chip_hr" of phase 8's mount (18 lines):
+     tools/train_kitti.main for 3 steps and one validation batch with
+     ResNet18 in float32 and in bf16 mixed precision and with ResNet50
+     in float32, every kernel count from 0 just before each run: 5 + 4 K3
+     launches per step (5 more for the validation batch), no other
+     kernel, float32 checkpoints; "on" vs "off" on one batch (phase 9's
+     contract, the argmin-free variant as there; with hints <= 0.5% of
+     the pixels' argmins flipped and every flip a near-tie, where phase 9
+     holds the losses within 1e-4); K3 vs
+     plain on the path's grids (the hints' and a seeded ResNet18's scale
+     0 and 3 disparities, both baselines; forward <= 1e-5, gradients
+     <= 1e-4 of their peak); ms per step of the three, the first step's
+     peak memory, a profile of each (idle share, ATen ops, the costliest
+     convs with their cuDNN kernels), K3 per launch at (6, 320, 1024, 3)
+     against plain, F.grid_sample and the bound; card vs host losses of
+     a train-mode forward at B=1 within 1e-4 relative;
+ 16. visuals: tools/train_kitti.main (640x192, B=12, 3 steps, a log step
+     at each) and tools/train_nyu.main (DenseNet161 640x480, B=8, bf16,
+     3 steps) each with a recording writer in place of tensorboardX and
+     without a writer, at learning rate 0 with cuDNN deterministic (the
+     card's backward is not bitwise reproducible, so only frozen weights
+     make every logged loss comparable): every image finite in [0, 1],
+     the tags tests/test_torch_port_visuals.py pins, and the two runs'
+     logged losses and model checkpoints bitwise equal;
+ 17. soak: tools/soak_kitti.py (the trainer as a subprocess: stereo +
+     hints, bf16, B=12, 640x192, --log_frequency 10) on 240 lines of phase
+     8's mount (20 steps an epoch), 4 epochs, SIGKILL once epoch 2's
+     checkpoint is complete and a relaunch with --auto_resume, memory
+     sampled every 0.5 s: every check passes but anon_rss_stable, which
+     is printed with the RSS and anonymous-memory peaks and the slope
+     after warm-up, not gated;
+ 18. sparsity: tools/sparsity_sweep.py with random and synthetic weights
+     (300 training steps) for KITTI ResNet18 640x192 B=8 in float32 and
+     bf16, and NYU DenseNet161 480x640 B=4 in bf16 (10 training steps,
+     cut to fit the time), windows of 6 calls: the dense row and thresh -1 at density 1.0
+     with equal GFLOPs, densities falling as the threshold rises; the
+     same sweep at 64x96 on seeded weights (--weights torch) on the card
+     and on the host, densities within 1e-3 and GFLOPs within 1e-6
+     relative; tools/profile_model.py once (FLOP counter, analytic
+     sweep, a Chrome trace);
+ 19. native: with g++ and OpenCV's headers and libraries on the machine,
+     the native decoder's build, its uint8 feed against the float feed
+     (f32 == u8 * float32(1/255) exactly) and tools/evaluate_depth.py
+     --native_decode on phase 11's mount and checkpoint on the card and
+     on the host (rows within 1e-4), with the two feeds' times; without
+     them, --native_decode must raise the port's NativeUnavailable, and
+     {"phase": "native", "available": false, "missing": [...]} says what
+     was absent.
 
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
 summary (K1/K4 with the NYU path's `launches_nyu` and `*_nyu` B=8 sums,
-K3 with the M+S run's `launches_kitti_pose`) and the last is
+K3 with the M+S run's `launches_kitti_pose` and the 1024x320 B=6 run's
+`launches_kitti_hr` and `*_kitti_hr` per-launch times) and the last is
 {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
@@ -1500,49 +1552,61 @@ def phase_warp_vs_plain(dev, models, errs):
     largest value (shared-memory atomics sum in a varying order), with and
     without the source-row pass; the path's grids must be row-banded."""
     import torch
-    from wavelet_monodepth_tpu_torch.ops import warp
     g = torch.Generator().manual_seed(12)
     for name, img, grid in warp_cases(dev, models):
-        n, h, w, c = img.shape
-        if not name.startswith(("border", "ragged")):
-            off = band_offset(grid)
-            require(off <= 1.0, (name, "not row-banded", off))
-        x, yr = warp.banded_coords(grid, h, w)
-        gout = torch.randn(img.shape, generator=g).to(dev)
-        for with_src in (True, False):
-            res = {}
-            for kind, fn in (("kernel", warp.BandedWarp.apply),
-                             ("plain", warp.banded_warp_plain)):
-                src = img.clone().requires_grad_(with_src)
-                xa = x.clone().requires_grad_()
-                ya = yr.clone().requires_grad_()
-                out = fn(src, xa, ya)
-                out.backward(gout)
-                res[kind] = {"out": out.detach(), "gx": xa.grad,
-                             "gyr": ya.grad}
-                if with_src:
-                    res[kind]["gsrc"] = src.grad
-            torch.cuda.synchronize()
-            fwd_err = float((res["kernel"]["out"] - res["plain"]["out"])
-                            .abs().max())
-            grad_abs, grad_rel = {}, {}
-            for k in res["plain"]:
-                if k == "out":
-                    continue
-                d = (res["kernel"][k] - res["plain"][k]).abs().max()
-                grad_abs[k] = float(d)
-                grad_rel[k] = float(d / res["plain"][k].abs().max()
-                                    .clamp_min(1e-30))
-            require(fwd_err <= 1e-5, (name, "forward", fwd_err))
-            require(all(v <= 1e-4 for v in grad_rel.values()),
-                    (name, "gradients", grad_rel))
-            errs["banded_warp_fwd"] = max(errs["banded_warp_fwd"], fwd_err)
-            errs["banded_warp_bwd"] = max(errs["banded_warp_bwd"],
-                                          *grad_abs.values())
-            emit({"phase": "warp_vs_plain", "case": name,
-                  "shape": [n, h, w, c], "with_src_grad": with_src,
-                  "fwd_max_abs_err": fwd_err, "grad_max_abs_err": grad_abs,
-                  "grad_max_rel_err": grad_rel})
+        check_warp_case(name, img, grid, errs, g,
+                        banded=not name.startswith(("border", "ragged")))
+
+
+def check_warp_case(name, img, grid, errs, g, banded=True, valid=None,
+                    phase="warp_vs_plain") -> None:
+    """K3 against its plain version on one (img, grid): forward within
+    1e-5, the gradients for src, x and yr within 1e-4 of their largest
+    value, with and without the source-row pass; banded grids must stay
+    within one row of their own (over the `valid` pixels)."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import warp
+    dev = img.device
+    n, h, w, c = img.shape
+    if banded:
+        off = band_offset(grid, valid)
+        require(off <= 1.0, (name, "not row-banded", off))
+    x, yr = warp.banded_coords(grid, h, w)
+    gout = torch.randn(img.shape, generator=g).to(dev)
+    for with_src in (True, False):
+        res = {}
+        for kind, fn in (("kernel", warp.BandedWarp.apply),
+                         ("plain", warp.banded_warp_plain)):
+            src = img.clone().requires_grad_(with_src)
+            xa = x.clone().requires_grad_()
+            ya = yr.clone().requires_grad_()
+            out = fn(src, xa, ya)
+            out.backward(gout)
+            res[kind] = {"out": out.detach(), "gx": xa.grad,
+                         "gyr": ya.grad}
+            if with_src:
+                res[kind]["gsrc"] = src.grad
+        torch.cuda.synchronize()
+        fwd_err = float((res["kernel"]["out"] - res["plain"]["out"])
+                        .abs().max())
+        grad_abs, grad_rel = {}, {}
+        for k in res["plain"]:
+            if k == "out":
+                continue
+            d = (res["kernel"][k] - res["plain"][k]).abs().max()
+            grad_abs[k] = float(d)
+            grad_rel[k] = float(d / res["plain"][k].abs().max()
+                                .clamp_min(1e-30))
+        require(fwd_err <= 1e-5, (name, "forward", fwd_err))
+        require(all(v <= 1e-4 for v in grad_rel.values()),
+                (name, "gradients", grad_rel))
+        errs["banded_warp_fwd"] = max(errs["banded_warp_fwd"], fwd_err)
+        errs["banded_warp_bwd"] = max(errs["banded_warp_bwd"],
+                                      *grad_abs.values())
+        emit({"phase": phase, "case": name,
+              "shape": [n, h, w, c], "with_src_grad": with_src,
+              "fwd_max_abs_err": fwd_err, "grad_max_abs_err": grad_abs,
+              "grad_max_rel_err": grad_rel})
 
 
 # --- phase 8: the training slice ---------------------------------------------
@@ -1608,6 +1672,12 @@ def train_argv(root: str, log: str, kern: str = "on", batch=TRAIN_B,
                 ["--use_depth_hints"] if hints else ["--disable_automasking"])
 
 
+def no_writer():
+    """A SummaryLogger without writers (tensorboardX's or any)."""
+    from wavelet_monodepth_tpu_torch.utils.logging import SummaryLogger
+    return SummaryLogger("unused", writers={})
+
+
 def float_dtypes_of(*paths) -> list:
     """The float dtypes of the tensors saved in checkpoint files (a state
     dict, or an optimizer's, whose moments sit under "state")."""
@@ -1635,8 +1705,11 @@ def phase_train_slice(dev, root: str, log: str, bf16: bool = False):
     torch.cuda.synchronize()
     warp.reset_launches()
     t0 = time.perf_counter()
+    # without a TensorBoard writer: the visuals phase runs the writer's
+    # extra forward (5 more forward warps per log step)
     summary = train_kitti.main(train_argv(root, log)
-                               + (["--bfloat16"] if bf16 else []), device=dev)
+                               + (["--bfloat16"] if bf16 else []), device=dev,
+                               logger=no_writer())
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(warp.launches)
@@ -1690,15 +1763,15 @@ def phase_train_slice(dev, root: str, log: str, bf16: bool = False):
 # --- phase 9: train contracts ------------------------------------------------
 
 def loader_batch(root: str, dev, batch: int = TRAIN_B, seed: int = 0,
-                 is_train: bool = True):
+                 is_train: bool = True, size=(H, W), split: str = "chip"):
     """One batch of the mount through the port's dataset and loader, on
     the card."""
     from wavelet_monodepth_tpu_torch.data import kitti as kd
     from wavelet_monodepth_tpu_torch.data.loader import (parallel_batches,
                                                         to_device)
     from wavelet_monodepth_tpu_torch.data.splits import read_split
-    lines = read_split("chip", "train_files.txt", root)
-    ds = kd.KittiRawDataset(root, lines, H, W, [0, "s"], [0, 1, 2, 3],
+    lines = read_split(split, "train_files.txt", root)
+    ds = kd.KittiRawDataset(root, lines, *size, [0, "s"], [0, 1, 2, 3],
                             is_train=is_train, use_depth_hints=True,
                             aug_scales=(0,), other_frame_scales=(0,),
                             device_augment=True)
@@ -1748,19 +1821,24 @@ def rel_norms(a: dict, b: dict) -> dict:
             for k in b}
 
 
-def on_vs_off(dev, root: str, batch, hints: bool) -> dict:
-    """Losses, gradients and outputs of "on" and "off" (and a rerun of
-    each, for the run-to-run noise) on one batch and one set of weights."""
+def on_vs_off(dev, root: str, batch, hints: bool, argv_of=None,
+              reruns: bool = True) -> dict:
+    """Losses, gradients and outputs of "on" and "off" (and, with reruns,
+    a rerun of each, for the run-to-run noise) on one batch and one set of
+    weights. argv_of(kern, hints): the training flags (the flagship's by
+    default)."""
     import torch
     from wavelet_monodepth_tpu_torch.ops import warp
     from wavelet_monodepth_tpu_torch.train.kitti import KittiTrainSetup
     from wavelet_monodepth_tpu_torch.utils.config import parse_kitti_args
+    if argv_of is None:
+        def argv_of(kern, hints):
+            return train_argv(root, "unused", kern, hints=hints)
     runs = {}
     torch.backends.cudnn.deterministic = True
-    for run in ("on", "off", "on2", "off2"):
+    for run in ("on", "off") + (("on2", "off2") if reruns else ()):
         kern = "on" if run.startswith("on") else "off"
-        opts = parse_kitti_args(train_argv(root, "unused", kern,
-                                           hints=hints))
+        opts = parse_kitti_args(argv_of(kern, hints))
         setup = KittiTrainSetup(opts, steps_per_epoch=3, device=dev)
         state = conditioned_state(setup)
         noise = torch.Generator(device=dev).manual_seed(5)
@@ -1792,46 +1870,8 @@ def phase_train_contracts(dev, root: str):
     # ROADMAP.md Queue 3), which the gather does not share.
     batch = loader_batch(root, dev, is_train=False)
     batch[("stereo_T",)][:, 0, 3] = 0.1
-    valid = batch[("depth_hint",)] > 0
     for hints in (True, False):
-        runs = on_vs_off(dev, root, batch, hints)
-        want = {"banded_warp_fwd": 5 if hints else 4, "banded_warp_bwd": 4}
-        require(runs["on_launches"] == want, runs["on_launches"])
-        require(not any(runs["off_launches"].values()),
-                runs["off_launches"])
-        (l_on, g_on, o_on), (l_off, g_off, o_off) = runs["on"], runs["off"]
-        img_err = {str(k): float(((o_on[k] - o_off[k]).abs()
-                                  * (valid if k[0] == "color_depth_hint"
-                                     else 1.0)).max())
-                   for k in o_off if k[0].startswith("color")}
-        flips = {str(k): int((o_on[k] != o_off[k]).sum()) for k in o_off
-                 if not k[0].startswith("color")}
-        loss_rel = {k: abs(l_on[k] - l_off[k]) / max(abs(l_off[k]), 1e-30)
-                    for k in l_on}
-        loss_abs = max(abs(l_on[k] - l_off[k]) for k in l_on)
-        rel = rel_norms(g_on, g_off)
-        worst = max(rel, key=rel.get)
-        emit({"phase": "contract_on_vs_off",
-              "config": "stereo+hints" if hints
-                        else "stereo, no hints, no automasking",
-              "batch": TRAIN_B, "warped_max_abs_diff": img_err,
-              "mask_flips": flips, "pixels": int(valid.numel()),
-              "loss_max_abs_diff": loss_abs,
-              "loss_max_rel_diff": max(loss_rel.values()),
-              "grad_max_rel_norm_diff": rel[worst], "worst_tensor": worst,
-              "grad_rel_norm_on_rerun": max(rel_norms(runs["on2"][1],
-                                                      g_on).values()),
-              "grad_rel_norm_off_rerun": max(rel_norms(runs["off2"][1],
-                                                       g_off).values()),
-              "launches_per_step_on": runs["on_launches"],
-              "losses_on": l_on})
-        if hints:
-            require(max(flips.values()) <= 0.005 * valid.numel(), flips)
-            require(max(loss_rel.values()) <= 1e-4, ("losses", loss_rel))
-        else:
-            require(loss_abs <= 1e-5, ("on vs off losses", loss_abs))
-            require(rel[worst] <= 1e-3, ("on vs off gradients", worst,
-                                         rel[worst]))
+        check_on_vs_off(on_vs_off(dev, root, batch, hints), batch, hints)
 
     for bf16 in (False, True):
         hints, dtypes = learning_contract(dev, bf16=bf16)
@@ -1842,6 +1882,118 @@ def phase_train_contracts(dev, root: str):
                 ("hint loss did not fall 15%", bf16, hints[0], hints[-1]))
         require(dtypes == ["torch.float32"], ("state dtypes", dtypes))
     return batch
+
+
+def flip_ties(batch, runs: dict, seed: int = 5) -> dict:
+    """Per loss scale, the pixels whose argmin over [reproj, identity +
+    noise, hint reproj] differs between on_vs_off's "on" and "off" runs
+    (stereo + hints; the noise redrawn from the runs' seed), and how many
+    of them are not near-ties: in each run the other run's choice must lie
+    within 1e-5 of its own, or within the two runs' own disagreement on
+    those two candidates there. `mask_mismatch` counts pixels where the
+    recomputed choice differs from the run's recorded masks (0 when the
+    recomputation is the loss's)."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import augment
+    from wavelet_monodepth_tpu_torch.train import losses_kitti as lk
+    inputs = augment.expand_batch(batch)
+    target = inputs[("color", "0", 0)]
+    hint_valid = 1000.0 * (1.0 - inputs[("depth_hint_mask",)])
+    gen = torch.Generator(device=target.device).manual_seed(seed)
+    ident = lk.compute_reprojection_loss(inputs[("color", "s", 0)], target)
+
+    def take(c, a):
+        return c.gather(-1, a)[..., 0]
+    out = {}
+    for scale in range(4):
+        ident_s = ident + lk._automask_noise(gen, scale, ident)
+        cand, mismatch = {}, 0
+        for run in ("on", "off"):
+            o = runs[run][2]
+            c = torch.cat([
+                lk.compute_reprojection_loss(o[("color", "s", scale)],
+                                             target),
+                ident_s,
+                lk.compute_reprojection_loss(
+                    o[("color_depth_hint", "s", 0)], target) + hint_valid],
+                dim=-1)
+            choice = c.argmin(dim=-1, keepdim=True)
+            mismatch += int(((choice == 2).float()
+                             != o[("depth_hint_pixels", scale)]).sum())
+            cand[run] = (c, choice)
+        (c_on, a_on), (c_off, a_off) = cand["on"], cand["off"]
+        flipped = (a_on != a_off)[..., 0]
+        # the two runs' disagreement on the two candidates chosen
+        noise = ((take(c_on, a_on) - take(c_off, a_on)).abs()
+                 + (take(c_on, a_off) - take(c_off, a_off)).abs())
+        gap = torch.maximum(take(c_on, a_off) - take(c_on, a_on),
+                            take(c_off, a_on) - take(c_off, a_off))
+        tie = (gap <= 1e-5) | (gap <= noise)
+        out[scale] = {"flips": int(flipped.sum()),
+                      "not_tie": int((flipped & ~tie).sum()),
+                      "mask_mismatch": mismatch,
+                      "gap_max_at_flips": float(gap[flipped].max())
+                      if flipped.any() else 0.0,
+                      "noise_max_at_flips": float(noise[flipped].max())
+                      if flipped.any() else 0.0}
+    return out
+
+
+def check_on_vs_off(runs: dict, batch, hints: bool,
+                    phase: str = "contract_on_vs_off",
+                    hint_losses_within: bool = True, **extra) -> None:
+    """The on/off contract on on_vs_off's runs (phase_train_contracts).
+    With hints, hint_losses_within=False replaces "losses within 1e-4
+    relative" by "every argmin flip a near-tie" (flip_ties): the hint
+    term of each flipped pixel moves the loss by its whole log-depth
+    error, so the losses' gap measures how the flips fall, not the warps
+    (1024x320: 3.4e-4 from 0.08% of the pixels)."""
+    valid = batch[("depth_hint",)] > 0
+    want = {"banded_warp_fwd": 5 if hints else 4, "banded_warp_bwd": 4}
+    require(runs["on_launches"] == want, runs["on_launches"])
+    require(not any(runs["off_launches"].values()),
+            runs["off_launches"])
+    (l_on, g_on, o_on), (l_off, g_off, o_off) = runs["on"], runs["off"]
+    img_err = {str(k): float(((o_on[k] - o_off[k]).abs()
+                              * (valid if k[0] == "color_depth_hint"
+                                 else 1.0)).max())
+               for k in o_off if k[0].startswith("color")}
+    flips = {str(k): int((o_on[k] != o_off[k]).sum()) for k in o_off
+             if not k[0].startswith("color")}
+    loss_rel = {k: abs(l_on[k] - l_off[k]) / max(abs(l_off[k]), 1e-30)
+                for k in l_on}
+    loss_abs = max(abs(l_on[k] - l_off[k]) for k in l_on)
+    rel = rel_norms(g_on, g_off)
+    worst = max(rel, key=rel.get)
+    ties = flip_ties(batch, runs) if hints else None
+    emit({"phase": phase, "flip_ties": ties,
+          "config": "stereo+hints" if hints
+                    else "stereo, no hints, no automasking",
+          "batch": int(valid.shape[0]), "res": list(valid.shape[1:3]),
+          "warped_max_abs_diff": img_err,
+          "mask_flips": flips, "pixels": int(valid.numel()),
+          "loss_max_abs_diff": loss_abs,
+          "loss_max_rel_diff": max(loss_rel.values()),
+          "grad_max_rel_norm_diff": rel[worst], "worst_tensor": worst,
+          "grad_rel_norm_on_rerun": max(rel_norms(runs["on2"][1],
+                                                  g_on).values())
+          if "on2" in runs else None,
+          "grad_rel_norm_off_rerun": max(rel_norms(runs["off2"][1],
+                                                   g_off).values())
+          if "off2" in runs else None,
+          "launches_per_step_on": runs["on_launches"],
+          "losses_on": l_on, **extra, **_card})
+    if hints:
+        require(max(flips.values()) <= 0.005 * valid.numel(), flips)
+        if hint_losses_within:
+            require(max(loss_rel.values()) <= 1e-4, ("losses", loss_rel))
+        else:
+            require(all(t["not_tie"] == 0 and t["mask_mismatch"] == 0
+                        for t in ties.values()), ("flips not ties", ties))
+    else:
+        require(loss_abs <= 1e-5, ("on vs off losses", loss_abs))
+        require(rel[worst] <= 1e-3, ("on vs off gradients", worst,
+                                     rel[worst]))
 
 
 def twin_batch(dev, n: int = 4, shift: int = round(4 * W / 96)):
@@ -2101,8 +2253,6 @@ def phase_train_times(dev, root: str, batch):
     again with cudnn.benchmark), a profiler trace of each for the device's
     idle share, and K3 and F.grid_sample per launch at (12, 192, 640, 3)."""
     import torch
-    import torch.nn.functional as F
-    from wavelet_monodepth_tpu_torch.ops import warp
     from wavelet_monodepth_tpu_torch.train.kitti import KittiTrainSetup
     from wavelet_monodepth_tpu_torch.utils.config import parse_kitti_args
 
@@ -2142,17 +2292,26 @@ def phase_train_times(dev, root: str, batch):
           "dtype": "float32", "tf32": False, **t, **_card})
     del setup, state
 
-    # K3 and its yardsticks at the path's shape, from the path's grid. The
-    # backward kernels are launched directly (the autograd engine's host
-    # time per call would otherwise outrun the queued-ahead window)
-    n, h, w, c = TRAIN_B, H, W, 3
-    g = torch.Generator().manual_seed(21)
+    # K3 and its yardsticks at the path's shape, from the path's grid
     img = batch[("color_u8", "s", 0)].float() / 255.0
     depth = batch[("depth_hint",)].clamp_min(1.0)
-    grid = stereo_grid(depth, 0.1)
+    return time_warp(img, stereo_grid(depth, 0.1))
+
+
+def time_warp(img, grid, phase: str = "time_warp", **extra) -> dict:
+    """K3 forward and backward per launch on (img, grid) against the plain
+    version, F.grid_sample and their bound; emits one line and returns the
+    kernels line's numbers. The backward kernels are launched directly
+    (the autograd engine's host time per call would otherwise outrun the
+    queued-ahead window)."""
+    import torch
+    import torch.nn.functional as F
+    from wavelet_monodepth_tpu_torch.ops import warp
+    n, h, w, c = img.shape
+    g = torch.Generator().manual_seed(21)
     x, yr = warp.banded_coords(grid, h, w)
     xg, yg = x.clone().requires_grad_(), yr.clone().requires_grad_()
-    gout = torch.randn(n, h, w, c, generator=g).to(dev)
+    gout = torch.randn(n, h, w, c, generator=g).to(img.device)
     out_p = warp.banded_warp_plain(img, xg, yg)
     img_nchw = img.permute(0, 3, 1, 2)
     gout_nchw = gout.permute(0, 3, 1, 2)
@@ -2194,10 +2353,10 @@ def phase_train_times(dev, root: str, batch):
     bounds = {"fwd": warp_bound_ms(n, h, w, c, False, False),
               "bwd": warp_bound_ms(n, h, w, c, True, False),
               "bwd_with_src": warp_bound_ms(n, h, w, c, True, True)}
-    emit({"phase": "time_warp", "shape": [n, h, w, c],
+    emit({"phase": phase, "shape": [n, h, w, c],
           "fwd_band_rows": warp.band_rows(img), "fwd": fwd,
           "bwd": bwd, **fwd_bwd_lib, "bound_ms": bounds,
-          "kernel_launches_while_timing": timed, **_card})
+          "kernel_launches_while_timing": timed, **extra, **_card})
     return {"banded_warp_fwd": {
                 "ms": fwd["kernel"]["ms_median"],
                 "plain_ms": fwd["plain"]["ms_median"],
@@ -2383,7 +2542,7 @@ def tf32_on(on: bool):
         torch.backends.cudnn.allow_tf32 = False
 
 
-def phase_eval(dev, ckpt18: str, tmp: str) -> None:
+def phase_eval(dev, ckpt18: str, tmp: str):
     """tools/evaluate_depth.main on a synthetic eigen mount (16 test
     frames at 1242x375, data/synth.py): KITTI ResNet18 640x192 on the
     checkpoint the training phase wrote, (a) dense --post_process, the
@@ -2392,7 +2551,8 @@ def phase_eval(dev, ckpt18: str, tmp: str) -> None:
     disparities; KITTI ResNet50 1024x320 on seeded weights, dense and
     sparse. Checks: finite rows; (d) == (a) exactly; card vs CPU
     disparities and rows within TOL; (b)'s ops are the decoder's own; (c)
-    within the bf16 bounds of (a) in sigmoid disparity."""
+    within the bf16 bounds of (a) in sigmoid disparity. Returns (the
+    mount, the ResNet18 checkpoint folder)."""
     import shutil
     import numpy as np
     from wavelet_monodepth_tpu_torch.data import synth
@@ -2473,7 +2633,9 @@ def phase_eval(dev, ckpt18: str, tmp: str) -> None:
                 and row_gap <= TOL and bf16.max() <= BF16_DISP_MAX
                 and bf16.mean() <= BF16_DISP_MEAN
                 and res["sparse"]["total_ops_mean"] == ops, check)
+        trained = folder
     emit({"phase": "eval_done", "seconds": time.perf_counter() - t_phase})
+    return root, trained
 
 
 # --- phase 12: NYUv2 serving and evaluation ----------------------------------
@@ -3186,8 +3348,9 @@ def conv_breakdown(fn, top: int = 6) -> list:
     return out
 
 
-def phase_nyu_train(dev, tmp: str) -> None:
-    """The NYUv2 training slice on the card (module docstring, phase 13)."""
+def phase_nyu_train(dev, tmp: str) -> str:
+    """The NYUv2 training slice on the card (module docstring, phase 13).
+    Returns the fabricated zip."""
     import numpy as np
     import torch
     from wavelet_monodepth_tpu_torch.data import nyu as nyu_data
@@ -3275,6 +3438,7 @@ def phase_nyu_train(dev, tmp: str) -> None:
     torch.cuda.empty_cache()
     emit({"phase": "nyu_train_done",
           "seconds": time.perf_counter() - t_phase})
+    return zip_path
 
 
 # --- phase 14: the remaining KITTI models ------------------------------------
@@ -3647,6 +3811,544 @@ def phase_kitti_pose(dev, root: str, tmp: str, stereo_launches: dict):
     return launches
 
 
+# --- phase 15: KITTI 1024x320 B=6 training ----------------------------------
+
+HR_B = 6                            # the published HR rows' batch
+HR_SPLIT = "chip_hr"
+HR_STEPS = 3
+
+
+def write_hr_split(root: str) -> None:
+    """Split "chip_hr" of phase 8's mount: its first 18 lines (3 steps at
+    B=6); val: the first 6."""
+    from wavelet_monodepth_tpu_torch.data.splits import read_split
+    lines = read_split("chip", "train_files.txt", root)[:HR_STEPS * HR_B]
+    split = os.path.join(root, "splits", HR_SPLIT)
+    os.makedirs(split, exist_ok=True)
+    for name, part in (("train_files.txt", lines),
+                       ("val_files.txt", lines[:HR_B])):
+        with open(os.path.join(split, name), "w") as f:
+            f.write("\n".join(part) + "\n")
+
+
+def hr_argv(root: str, log: str, kern: str = "on", depth: int = 18,
+            extra=(), hints: bool = True) -> list:
+    """Stereo + depth hints at 1024x320, B=6 (the HR rows' training);
+    hints=False gives phase 9's argmin-free variant."""
+    return ["--data_path", root, "--split", HR_SPLIT, "--log_dir", log,
+            "--batch_size", str(HR_B), "--height", str(R50_H), "--width",
+            str(R50_W), "--num_layers", str(depth), "--use_stereo",
+            "--frame_ids", "0", "--use_wavelets",
+            "--weights_init", "scratch", "--stereo_warp_kernel", kern,
+            "--num_epochs", "1", "--log_frequency", "250",
+            "--num_workers", "4"] + (
+                ["--use_depth_hints"] if hints else ["--disable_automasking"]
+            ) + list(extra)
+
+
+def run_hr_main(dev, root: str, log: str, name: str, depth: int = 18,
+                extra=()) -> dict:
+    """tools/train_kitti.main at 1024x320 B=6 for one epoch (3 steps, one
+    validation batch), every kernel count from 0 just before it; checks
+    its losses, its K3 launches (5 + 4 per step, 5 more for the
+    validation batch), no other kernel and a float32 checkpoint. Returns
+    the K3 launches."""
+    import numpy as np
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import warp
+    from wavelet_monodepth_tpu_torch.tools import train_kitti
+    torch.cuda.synchronize()
+    warp.reset_launches()
+    before = kernel_launch_total()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    summary = train_kitti.main(hr_argv(root, log, depth=depth, extra=extra),
+                               device=dev, logger=no_writer())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(warp.launches)
+    others = kernel_launch_total() - before - sum(launches.values())
+    folder = summary["checkpoints"][-1]
+    dtypes = float_dtypes_of(*[os.path.join(folder, f)
+                               for f in sorted(os.listdir(folder))])
+    emit({"phase": "kitti_hr_train", "check": "train_main", "run": name,
+          "encoder": f"resnet{depth}", "batch": HR_B, "res": [R50_H, R50_W],
+          "steps": summary["steps"], "val_batches": summary["val_batches"],
+          "k3_launches": launches, "other_kernel_launches": others,
+          "main_seconds_incl_load_and_init": seconds,
+          "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+          "checkpoint_float_dtypes": dtypes, "losses": summary["losses"],
+          **_card})
+    require(summary["steps"] == HR_STEPS and summary["val_batches"] == 1,
+            summary)
+    require(all(np.isfinite(v) for d in summary["losses"] for v in d.values()),
+            ("finite HR losses", name, summary["losses"]))
+    require(launches == {"banded_warp_fwd": 5 * (HR_STEPS + 1),
+                         "banded_warp_bwd": 4 * HR_STEPS} and others == 0,
+            ("HR kernel launches", name, launches, others))
+    require(dtypes == ["torch.float32"], ("HR checkpoint dtypes", dtypes))
+    return launches
+
+
+def phase_kitti_hr_train(dev, root: str, tmp: str, errs: dict) -> dict:
+    """KITTI 1024x320 B=6 stereo + hints training on the card (module
+    docstring, phase 15). Returns the kernels line's K3 numbers at this
+    shape, with the R18 f32 run's launches."""
+    import torch
+    from wavelet_monodepth_tpu_torch.ops import augment
+    from wavelet_monodepth_tpu_torch.ops.geometry import disp_to_depth
+    from wavelet_monodepth_tpu_torch.ops.image import resize_bilinear
+
+    t_phase = time.perf_counter()
+    write_hr_split(root)
+    launches = run_hr_main(dev, root, os.path.join(tmp, "log_hr18"),
+                           "r18_f32")
+    run_hr_main(dev, root, os.path.join(tmp, "log_hr18_bf16"), "r18_bf16",
+                extra=["--bfloat16"])
+    run_hr_main(dev, root, os.path.join(tmp, "log_hr50"), "r50_f32",
+                depth=50)
+
+    # one unflipped B=6 batch with a positive baseline (phase 9's reasons)
+    batch = loader_batch(root, dev, HR_B, is_train=False,
+                         size=(R50_H, R50_W), split=HR_SPLIT)
+    batch[("stereo_T",)][:, 0, 3] = 0.1
+    for hints in (True, False):
+        check_on_vs_off(on_vs_off(
+            dev, root, batch, hints,
+            lambda kern, hints: hr_argv(root, "unused", kern, hints=hints),
+            reruns=False), batch, hints, phase="kitti_hr_on_vs_off",
+            hint_losses_within=False)
+    torch.cuda.empty_cache()
+
+    # K3 against plain on the path's grids: the hints' and a seeded
+    # ResNet18's disparities at scales 0 and 3, both baselines
+    g = torch.Generator().manual_seed(14)
+    img = batch[("color_u8", "s", 0)].float() / 255.0
+    hint = batch[("depth_hint",)]
+    valid = (hint > 0)[..., 0]
+    cases = [(f"hints_tx{t:+}", stereo_grid(hint.clamp_min(1.0), t), valid)
+             for t in (0.1, -0.1)]
+    enc, dec = build_models(dev, seed=3)
+    with torch.no_grad():
+        out = dec(enc(img))
+    for s in (0, 3):
+        disp = resize_bilinear(out[("disp", s)], R50_H, R50_W)
+        depth = disp_to_depth(disp, 0.1, 100.0)[1]
+        cases += [(f"net_disp{s}_tx{t:+}", stereo_grid(depth, t), None)
+                  for t in (0.1, -0.1)]
+    del enc, dec, out
+    for name, grid, ok in cases:
+        check_warp_case(name, img, grid, errs, g, valid=ok,
+                        phase="kitti_hr_warp_vs_plain")
+    k3 = time_warp(img, cases[0][1], phase="kitti_hr_time_warp",
+                   grid_source="the hints' stereo grid, tx +0.1")
+
+    # ms per step, idle share, peak memory, costliest convs
+    runs = {name: pose_setup(hr_argv(root, "unused", depth=d, extra=x), dev)
+            for name, d, x in (("r18_f32", 18, ()),
+                               ("r18_bf16", 18, ("--bfloat16",)),
+                               ("r50_f32", 50, ()))}
+    peak = {}
+    for name, (setup, state, noise) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        setup.train_step(state, batch, noise)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    steps = {name: (lambda r=r: r[0].train_step(r[1], batch, r[2]))
+             for name, r in runs.items()}
+    t = time_variants(steps, iters=2)
+    emit({"phase": "kitti_hr_train", "check": "time_train_step",
+          "batch": HR_B, "res": [R50_H, R50_W], "tf32": False,
+          "stereo_warp_kernel": "on",
+          "variants": {"r18_f32": "ResNet18, float32",
+                       "r18_bf16": "ResNet18, bf16 mixed precision",
+                       "r50_f32": "ResNet50, float32"},
+          "peak_memory_gib_first_step": peak,
+          "peak_memory_note": "earlier variants' states stay resident",
+          **t, **_card})
+    for name, fn in steps.items():
+        spans, _, by_op, busy, wall_ms = trace_calls(fn, 2)
+        top = sorted(((v[0], k) for k, v in by_op.items()
+                      if k.startswith("aten::")), reverse=True)[:8]
+        emit({"phase": "kitti_hr_train", "check": "profile_train_step",
+              "run": name, "kernels_per_step": len(spans) / 2,
+              "device_busy_ms_per_step": busy / 2e3 if spans else None,
+              "wall_ms_per_step": wall_ms / 2,
+              "idle_share": 1.0 - busy / 1e3 / wall_ms if spans else None,
+              "top_aten_ops_ms_per_step": [[k, v / 2e3] for v, k in top],
+              "costliest_convs": conv_breakdown(fn) if name == "r18_f32"
+              else None, **_card})
+    del runs, steps
+    torch.cuda.empty_cache()
+
+    # card vs host: a train-mode forward at B=1
+    b1 = {k: v[:1] for k, v in batch.items()}
+    setup, state, noise = pose_setup(hr_argv(root, "unused"), dev)
+    with torch.no_grad():
+        _, card = setup.forward(state, augment.expand_batch(b1), noise,
+                                train=True)
+    card = {k: float(v) for k, v in card.items()}
+    host = host_forward_losses(hr_argv(root, "unused"), b1)
+    rel = max_rel(card, host)
+    emit({"phase": "kitti_hr_train", "check": "card_vs_cpu_b1",
+          "loss_max_rel_diff": rel, "losses_card": card, "losses_host": host,
+          **_card})
+    require(rel <= 1e-4, ("HR card vs host losses", rel))
+    del setup, state
+    torch.cuda.empty_cache()
+    emit({"phase": "kitti_hr_train_done",
+          "seconds": time.perf_counter() - t_phase, **_card})
+    return {name: {"launches_kitti_hr": launches[name],
+                   "shape_kitti_hr": [HR_B, R50_H, R50_W, 3],
+                   **{f"{key}_kitti_hr": val for key, val in k3[name].items()
+                      if key != "bound_by"}}
+            for name in ("banded_warp_fwd", "banded_warp_bwd")}
+
+
+# --- phase 16: the training visuals -------------------------------------------
+
+# the tags of one image of the stereo + hints wavelet visuals (image j's
+# end in "/j"), as tests/test_torch_port_visuals.py pins them
+KITTI_VISUAL_TAGS = {
+    "color_0_0", "color_s_0", "color_pred_s_0", "depth_hints_mask0",
+    "disp_hints", "color_depth_hint0",
+    *(f"{kind}_{s}" for s in range(4) for kind in ("automask", "disp")),
+    *(f"{pre}{c}_{s}" for s in range(4) for c in ("LL", "LH", "HL", "HH")
+      for pre in ("", "hist_", "min/", "max/"))}
+# NyuDecoderWave (640x480): disparities at scales 0-3, coefficients at
+# scales 0-2 (its LL sits at scale 2, which the reference's image set
+# does not log)
+NYU_VISUAL_TAGS = {
+    "color", "disp_0_gt",
+    *(f"disp_{s}_pred" for s in range(4)),
+    *(f"{pre}{c}_{s}_{side}" for s in range(3) for c in ("LH", "HL", "HH")
+      for pre in ("", "hist_") for side in ("pred", "gt"))}
+
+
+class Recorder:
+    """A writer with tensorboardX's add_* calls that keeps what it is
+    given: (kind, tag, finite, min, max, shape)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _keep(self, kind, tag, value):
+        import numpy as np
+        a = np.asarray(value, np.float64)
+        self.calls.append((kind, tag, bool(np.isfinite(a).all()),
+                           float(a.min()), float(a.max()), a.shape))
+
+    def add_scalar(self, tag, value, step):
+        self._keep("scalar", tag, value)
+
+    def add_image(self, tag, img, step):
+        self._keep("image", tag, img)
+
+    def add_histogram(self, tag, values, step):
+        self._keep("histogram", tag, values)
+
+    def close(self):
+        pass
+
+
+def visual_tags(calls, kinds=("image", "histogram")) -> set:
+    return {c[1].rsplit("/", 1)[0] for c in calls if c[0] in kinds}
+
+
+def checkpoint_diff(a: str, b: str, files) -> float:
+    """Largest |difference| between two checkpoint folders' tensors in
+    `files`."""
+    import torch
+    worst = 0.0
+    for f in files:
+        sa = torch.load(os.path.join(a, f), weights_only=True)
+        sb = torch.load(os.path.join(b, f), weights_only=True)
+        fa = list(sa["state"].values()) if "state" in sa else [sa]
+        fb = list(sb["state"].values()) if "state" in sb else [sb]
+        for da, db in zip(fa, fb):
+            for k, v in da.items():
+                if torch.is_tensor(v) and v.is_floating_point():
+                    worst = max(worst, float((v - db[k]).abs().max()))
+    return worst
+
+
+def visuals_runs(run, tags: set, label: str) -> None:
+    """run(logger) -> summary, with a recording writer and without one, at
+    learning rate 0 with cuDNN deterministic: the card's backward is not
+    bitwise reproducible (atomic adds in the upsample and padding
+    backwards), so the weights stay put and every logged loss of the two
+    runs is deterministic. Checks: each recorded image finite in [0, 1],
+    the pinned tags, and the two runs' logged losses and model
+    checkpoints bitwise equal (Adam's moments hold the gradients, so they
+    are reported, not compared)."""
+    import torch
+    from wavelet_monodepth_tpu_torch.utils.logging import SummaryLogger
+    writers = {"train": Recorder(), "val": Recorder()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        with_w = run(SummaryLogger("unused", writers=writers))
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        without = run(no_writer())
+        seconds_without = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    losses = ("losses", "val_losses")
+    same = all(with_w.get(k) == without.get(k) for k in losses)
+    folders = with_w["checkpoints"][-1], without["checkpoints"][-1]
+    models = [f for f in sorted(os.listdir(folders[0])) if f != "adam.pth"]
+    ck_diff = checkpoint_diff(*folders, models)
+    images = [c for w in writers.values() for c in w.calls
+              if c[0] == "image"]
+    bad = [c[1] for c in images if not (c[2] and c[3] >= 0 and c[4] <= 1)]
+    want = {t for t in tags if not t.startswith(("min/", "max/"))}
+    got = {m: visual_tags(w.calls) for m, w in writers.items()}
+    scalars = {m: visual_tags(w.calls, ("scalar",))
+               for m, w in writers.items()}
+    tags_ok = {m: got[m] == want and tags - want <= scalars[m]
+               for m in writers}
+    emit({"phase": "visuals", "run": label, "steps": with_w["steps"],
+          "log_steps": len(with_w["losses"]),
+          "records": {m: len(w.calls) for m, w in writers.items()},
+          "images": len(images), "images_not_finite_in_0_1": bad,
+          "tags_match": tags_ok, "losses_bitwise_equal": same,
+          "model_checkpoint_max_abs_diff": ck_diff,
+          "adam_max_abs_diff": checkpoint_diff(*folders, ["adam.pth"]),
+          "main_seconds_with_writer": seconds,
+          "main_seconds_without": seconds_without, **_card})
+    require(not bad and all(tags_ok.values()),
+            (label, "visual records", bad, got, scalars))
+    require(same and ck_diff == 0.0,
+            (label, "the writer moved training", same, ck_diff))
+
+
+def phase_visuals(dev, root: str, tmp: str, nyu_zip: str) -> None:
+    """The training visuals on the card (module docstring, phase 16)."""
+    from wavelet_monodepth_tpu_torch.tools import train_kitti, train_nyu
+    t_phase = time.perf_counter()
+    count = [0]
+
+    def kitti(logger):
+        count[0] += 1
+        return train_kitti.main(
+            train_argv(root, os.path.join(tmp, f"log_vis{count[0]}"))
+            + ["--log_frequency", "1", "--learning_rate", "0"], device=dev,
+            logger=logger)
+
+    def nyu(logger):
+        count[0] += 1
+        return train_nyu.main(
+            nyu_train_argv(nyu_zip, os.path.join(tmp, f"log_vis{count[0]}"),
+                           dev, bf16=True) + ["--lr", "0"], device=dev,
+            logger=logger)
+
+    visuals_runs(kitti, KITTI_VISUAL_TAGS, "train_kitti")
+    visuals_runs(nyu, NYU_VISUAL_TAGS, "train_nyu_bf16")
+    emit({"phase": "visuals_done", "seconds": time.perf_counter() - t_phase})
+
+
+# --- phase 17: the soak -------------------------------------------------------
+
+SOAK_SPLIT = "chip_soak"
+SOAK_STEPS_PER_EPOCH = 20
+SOAK_EPOCHS = 4
+
+
+def phase_soak(dev, root: str, tmp: str) -> None:
+    """tools/soak_kitti.py on phase 8's mount (module docstring, phase 17)."""
+    from wavelet_monodepth_tpu_torch.data.splits import read_split
+    from wavelet_monodepth_tpu_torch.tools import soak_kitti
+    t_phase = time.perf_counter()
+    lines = read_split("chip", "train_files.txt", root)
+    n = SOAK_STEPS_PER_EPOCH * TRAIN_B
+    lines = (lines * (n // len(lines) + 1))[:n]
+    split = os.path.join(root, "splits", SOAK_SPLIT)
+    os.makedirs(split, exist_ok=True)
+    for name, part in (("train_files.txt", lines),
+                       ("val_files.txt", lines[:TRAIN_B])):
+        with open(os.path.join(split, name), "w") as f:
+            f.write("\n".join(part) + "\n")
+    import torch
+    torch.cuda.empty_cache()        # the trainer is another process
+    with contextlib.redirect_stdout(sys.stderr):
+        s = soak_kitti.main([
+            "--data_path", root, "--split", SOAK_SPLIT,
+            "--out", os.path.join(tmp, "soak", "soak.json"),
+            "--num_epochs", str(SOAK_EPOCHS), "--kill_after_epoch", "2",
+            "--interval", "0.5", "--poll", "0.2", "--kill_delay", "0.5",
+            "--log_frequency", "10", "--device", str(dev)])
+    keep = ("config", "steps_per_epoch", "total_steps", "wall_s",
+            "resumed_at_epoch", "n_logged_lines", "first_losses",
+            "last_losses", "epoch_mean_loss", "examples_s_early",
+            "examples_s_late", "phase_b_wall_s", "phase_b_ms_per_step",
+            "rss_mb_first", "rss_mb_max", "rss_mb_last", "anon_mb_max",
+            "anon_mb_last", "anon_mb_per_min_after_warmup", "checks", "ok")
+    emit({"phase": "soak", **{k: s[k] for k in keep},
+          "rss_samples": len(s["rss_timeline"]),
+          "seconds": time.perf_counter() - t_phase, **_card})
+    failed = [k for k, v in s["checks"].items()
+              if not v and k != "anon_rss_stable"]
+    require(not failed, ("soak checks", failed))
+
+
+# --- phase 18: the sparsity curve ---------------------------------------------
+
+SWEEP_NYU_TRAIN_STEPS = 10          # cut from 300 to fit the time limit
+
+
+def run_sweep(argv, dev) -> dict:
+    """tools/sparsity_sweep.main (its progress lines on stderr) and its
+    checks: per weight source the dense row at density 1.0, thresh -1 at
+    density 1.0 with the dense row's GFLOPs, densities falling as the
+    threshold rises."""
+    from wavelet_monodepth_tpu_torch.tools import sparsity_sweep
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = sparsity_sweep.main(argv, device=dev)
+    seconds = time.perf_counter() - t0
+    for src in dict.fromkeys(r["weights"] for r in res["rows"]):
+        rows = [r for r in res["rows"] if r["weights"] == src]
+        dense = rows[0]
+        th = sorted((r for r in rows if r["mask_family"] == "threshold"),
+                    key=lambda r: r["threshold"])
+        require(dense["mask_family"] == "dense" and dense["density"] == 1.0
+                and th[0]["threshold"] == -1 and th[0]["density"] == 1.0
+                and th[0]["gflops"] == dense["gflops"],
+                ("sweep dense / thresh -1", src, dense, th[0]))
+        dens = [r["density"] for r in th]
+        require(all(a >= b for a, b in zip(dens, dens[1:])),
+                ("sweep densities rise with the threshold", src, dens))
+    return {**res, "seconds": seconds}
+
+
+def phase_sparsity(dev, tmp: str) -> None:
+    """tools/sparsity_sweep.py and tools/profile_model.py on the card
+    (module docstring, phase 18)."""
+    from wavelet_monodepth_tpu_torch.tools import profile_model
+    from wavelet_monodepth_tpu_torch.tools import torch_import as ti
+    t_phase = time.perf_counter()
+    cells = (("kitti_r18_f32", ["--batch", "8"]),
+             ("kitti_r18_bf16", ["--batch", "8", "--bfloat16"]),
+             ("nyu_densenet161_bf16",
+              ["--dataset", "nyu", "--batch", "4", "--bfloat16",
+               "--train_steps", str(SWEEP_NYU_TRAIN_STEPS)]))
+    for name, extra in cells:
+        res = run_sweep(["--weights", "random", "synthetic", "--k", "2",
+                         "6", "--out", os.path.join(tmp, "sweep",
+                                                    f"{name}.json")]
+                        + extra, dev)
+        emit({"phase": "sparsity", "cell": name, "meta": res["meta"],
+              "rows": [{k: r.get(k) for k in (
+                  "weights", "mask_family", "threshold", "density",
+                  "gflops", "ms_per_image", "disp_mae_vs_dense",
+                  "abs_rel_vs_gt", "latency_unreliable")}
+                  for r in res["rows"]],
+              "seconds": res["seconds"], **_card})
+
+    # the card's sweep against the host's, at 64x96 on seeded weights
+    folder = os.path.join(tmp, "sweep_weights")
+    enc, dec = build_models("cpu", seed=13)
+    ti.save_reference_checkpoint(folder, enc, dec, 64, 96)
+    small = ["--weights", "torch", "--torch_model_path", folder,
+             "--height", "64", "--width", "96", "--batch", "2",
+             "--k", "1", "1"]
+    card = run_sweep(small, dev)["rows"]
+    host = run_sweep(small + ["--device", "cpu"], "cpu")["rows"]
+    gaps = {"density": max(abs(a["density"] - b["density"])
+                           for a, b in zip(card, host)),
+            "gflops_rel": max(abs(a["gflops"] - b["gflops"]) / b["gflops"]
+                              for a, b in zip(card, host)),
+            "disp_mae_vs_dense": max(abs(a["disp_mae_vs_dense"]
+                                         - b["disp_mae_vs_dense"])
+                                     for a, b in zip(card, host))}
+    emit({"phase": "sparsity", "check": "card_vs_cpu_64x96", **gaps,
+          "rows": len(card), **_card})
+    require(len(card) == len(host) and gaps["density"] <= 1e-3
+            and gaps["gflops_rel"] <= 1e-6, ("sweep card vs host", gaps))
+
+    with contextlib.redirect_stdout(sys.stderr):
+        report = profile_model.main(["--trace_dir",
+                                     os.path.join(tmp, "profile_model")],
+                                    device=dev)
+    emit({"phase": "sparsity", "check": "profile_model",
+          "torch_flop_counter": report["torch_flop_counter"],
+          "analytic_sweep": report["analytic_sweep"],
+          "trace_bytes": os.path.getsize(report["trace"]), **_card})
+    require(report["torch_flop_counter"]["flops"] > 0
+            and report["analytic_sweep"][0]["density"] == 1.0, report)
+    emit({"phase": "sparsity_done",
+          "seconds": time.perf_counter() - t_phase})
+
+
+# --- phase 19: the native decoder --------------------------------------------
+
+def phase_native(dev, eval_root: str, folder18: str) -> None:
+    """The native decoder and evaluate_depth --native_decode (module
+    docstring, phase 19)."""
+    import numpy as np
+    from wavelet_monodepth_tpu_torch.data import native_loader as nl
+    from wavelet_monodepth_tpu_torch.data.splits import (readlines,
+                                                        resolve_split_dir)
+    from wavelet_monodepth_tpu_torch.tools import evaluate_depth as ed
+    argv = eval_argv(eval_root, dev, 18, (H, W)) + [
+        "--load_weights_folder", folder18, "--native_decode",
+        "--num_workers", "8"]
+    missing = nl.missing_requirements()
+    if missing:
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                ed.main(argv)
+        except nl.NativeUnavailable as err:
+            raised = err.missing
+        else:
+            raised = None
+        emit({"phase": "native", "available": False, "missing": missing,
+              "native_decode_raised": raised})
+        require(raised == missing, ("--native_decode without the library",
+                                    raised, missing))
+        return
+    t0 = time.perf_counter()
+    nl.build()
+    nl.load_library()
+    build_s = time.perf_counter() - t0
+    opts, _ = ed.parse_args(argv)
+    files = readlines(os.path.join(resolve_split_dir("eigen", eval_root),
+                                   "test_files.txt"))
+    ds = ed.eval_dataset(opts, files)
+    feeds = {}
+    for name, fn in (("native", lambda: list(ed.native_batches(opts, ds,
+                                                               files))),
+                     ("pil", lambda: list(ed.eval_batches(opts, ds)))):
+        t0 = time.perf_counter()
+        feeds[name] = fn()
+        feeds[name + "_s"] = time.perf_counter() - t0
+    u8 = np.concatenate(feeds["native"])
+    paths = []
+    for line in files:
+        folder, frame, side = line.split()
+        paths.append(ds.get_image_path(folder, int(frame), side))
+    f32 = nl.decode_resize_batch(paths, H, W, num_threads=8)
+    exact = bool((f32 == u8.astype(np.float32) * np.float32(1 / 255)).all())
+    with contextlib.redirect_stdout(sys.stderr):
+        rows = {side: ed.main(argv + (["--device", "cpu"] if side == "cpu"
+                                      else []))
+                for side in ("card", "cpu")}
+    gap = float(np.abs(np.subtract(list(rows["card"]["metrics"].values()),
+                                   list(rows["cpu"]["metrics"].values())))
+                .max())
+    pil_gap = float(np.abs(u8.astype(np.float32)
+                           - np.concatenate(feeds["pil"])).max())
+    emit({"phase": "native", "available": True, "build_seconds": build_s,
+          "frames": len(files), "u8_times_1_255_equals_f32": exact,
+          "card_vs_cpu_row_max": gap, "row_card": rows["card"]["metrics"],
+          "feed_seconds": {"native_8_threads": feeds["native_s"],
+                           "pil_serial": feeds["pil_s"]},
+          "native_vs_pil_max_abs_u8": pil_gap, **_card})
+    require(exact and gap <= TOL, ("native decoder", exact, gap))
+
+
 def main():
     dev = phase_device()
     sys.path.insert(0, REPO)
@@ -3730,18 +4432,25 @@ def main():
                           bf16=True)
         batch = phase_train_contracts(dev, root)
         warp_ms = phase_train_times(dev, root, batch)
-        phase_eval(dev, ckpt, tmp)
+        eval_root, folder18 = phase_eval(dev, ckpt, tmp)
         pose_launches = phase_kitti_pose(dev, root, tmp, warp_launches)
         nyu = phase_nyu(dev, errs, tmp)
-        phase_nyu_train(dev, tmp)
+        nyu_zip = phase_nyu_train(dev, tmp)
+        hr = phase_kitti_hr_train(dev, root, tmp, errs)
+        phase_visuals(dev, root, tmp, nyu_zip)
+        phase_soak(dev, root, tmp)
+        phase_sparsity(dev, tmp)
+        phase_native(dev, eval_root, folder18)
     # ms: one K3 launch at (12, 192, 640, 3) (backward: the training
     # path's, no source-row pass); launches: the train main path's;
-    # launches_kitti_pose: the M+S train main path's (phase 14)
+    # launches_kitti_pose: the M+S train main path's (phase 14);
+    # *_kitti_hr: the 1024x320 B=6 path's launches (phase 15) and one
+    # launch at (6, 320, 1024, 3)
     kernels += [{
         "name": k, "route": "cuda", "source": SOURCES["banded_warp"],
         "replaces": WARP_REPLACES, "launches": warp_launches[k],
         "launches_kitti_pose": pose_launches[k],
-        "max_abs_err": errs[k], **warp_ms[k]}
+        "max_abs_err": errs[k], **warp_ms[k], **hr[k]}
         for k in ("banded_warp_fwd", "banded_warp_bwd")]
     # K1 / K4: the NYU serving path's launches (the sparse requests of
     # phase 12) and, *_nyu, the B=8 sums over the NYU convs each runs per

@@ -347,11 +347,12 @@ def test_evaluate_depth_main_baseline_equals_jax(mount, tmp_path,
                                atol=1e-4)
 
 
-def test_evaluate_depth_main_flags(mount, weights, tmp_path):
+def test_evaluate_depth_main_flags(mount, weights, tmp_path, monkeypatch):
     """--save_pred_disps into --load_weights_folder (with coefficients),
     --ext_disp_to_eval rescoring them to the same row, --no_eval,
-    the benchmark PNGs, the mono/stereo check, --native_decode, and the
-    default device, which needs a card."""
+    the benchmark PNGs, the mono/stereo check, --native_decode's own
+    error where the native library cannot be built, and the default
+    device, which needs a card."""
     folder = str(tmp_path / "ckpt")
     shutil.copytree(weights, folder)
     base = ["--data_path", mount, "--device", "cpu"] + ARGS
@@ -388,8 +389,13 @@ def test_evaluate_depth_main_flags(mount, weights, tmp_path):
 
     with pytest.raises(ValueError, match="eval_mono"):
         ted.main(["--data_path", mount, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ted.main(base + ["--native_decode"])
+    # no fallback to the PIL feed: a host without g++ gets the port's error
+    from wavelet_monodepth_tpu_torch.data import native_loader
+    monkeypatch.setattr(native_loader, "_lib", None)
+    monkeypatch.setattr(native_loader, "missing_requirements",
+                        lambda: ["g++"])
+    with pytest.raises(native_loader.NativeUnavailable, match=r"g\+\+"):
+        ted.main(base + ["--load_weights_folder", folder, "--native_decode"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             ted.main(["--data_path", mount, "--torch_model_path", weights]

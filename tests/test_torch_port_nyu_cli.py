@@ -198,6 +198,8 @@ CLIS = {
     "train_kitti": ["--data_path", "x", "--device", "cpu"],
     "bench": ["--device", "cpu"],
     "train_nyu": ["--data_path", "x", "--device", "cpu"],
+    "sparsity_sweep": ["--device", "cpu"],
+    "profile_model": ["--device", "cpu"],
 }
 
 

@@ -93,20 +93,26 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.eval.pose_eval",
     "wavelet_monodepth_tpu_torch.tools.evaluate_pose",
     "wavelet_monodepth_tpu_torch.tools.precompute_depth_hints",
+    "wavelet_monodepth_tpu_torch.data.native_loader",
+    "wavelet_monodepth_tpu_torch.tools.soak_kitti",
+    "wavelet_monodepth_tpu_torch.tools.sparsity_sweep",
+    "wavelet_monodepth_tpu_torch.tools.plot_sparsity_curve",
+    "wavelet_monodepth_tpu_torch.tools.profile_model",
 ]
 
 
 def test_port_imports_no_jax():
     """Importing every port module (and running infer's lazy imports'
-    targets) loads neither jax/flax nor the JAX package, and no cv2 or
-    sklearn (the card's machine has neither)."""
+    targets) loads neither jax/flax nor the JAX package, and no cv2,
+    sklearn or matplotlib (the card's machine has none of them; the plot
+    tool imports matplotlib when it draws)."""
     code = (
         "import sys, importlib\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
         "import PIL.Image\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'wavelet_monodepth_tpu', 'cv2', "
-        "'sklearn'))\n"
+        "'sklearn', 'matplotlib'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

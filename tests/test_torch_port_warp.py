@@ -180,6 +180,40 @@ def test_cpu_path_counts_no_launch_and_checks_shapes():
                          torch.zeros(1, 2, 4), torch.zeros(1, 2))
 
 
+@pytest.mark.parametrize("n,h,w,want", [(6, 320, 1024, 1), (6, 320, 1242, 1),
+                                        (1, 375, 1242, 1), (12, 192, 640, 6)])
+def test_band_rows_and_backward_fit_at_high_resolution(n, h, w, want):
+    """K3's launch sizing for an H100's 132 SMs (C = 3), at the 1024x320
+    B=6 training cell, at raw KITTI width and at the 640x192 B=12 cell:
+    the fewest rows whose grid fits one wave at >= 2 blocks per SM, else
+    1 row; the forward's band fits a block's shared memory, and so does
+    the backward's source-row accumulator (W * C floats)."""
+    src = torch.empty(n, h, w, 3, device="meta")
+    rows = warp.band_rows(src, sms=132)
+    assert rows == want
+    assert warp.fwd_smem_bytes(rows, w, 3) <= warp._SMEM_LIMIT
+    fits = [r for r in range(1, h + 1)
+            if warp.fwd_smem_bytes(r, w, 3) <= warp._SMEM_LIMIT
+            and warp.blocks_per_sm(r, w, 3) >= 2
+            and n * -(-h // r) <= 132 * warp.blocks_per_sm(r, w, 3)]
+    assert rows == (min(fits) if fits else 1)
+    assert warp.bwd_smem_bytes(w, 3, True) == 4 * w * 3 <= warp._SMEM_LIMIT
+    assert warp.bwd_smem_bytes(w, 3, False) == 0
+
+
+def test_plain_matches_jax_at_1024x320():
+    """The plain version against JAX's banded warp (interpret mode) on a
+    (1, 320, 1024, 3) image, the 1024x320 training cell's width: forward
+    within 1e-5, gradients within 1e-5 of the largest."""
+    img, grid = _stereo(n=1, h=320, w=1024, seed=3)
+    g = np.random.RandomState(4).randn(*img.shape).astype(np.float32)
+    ref, gi_r, gg_r = _jax_vjp(img, grid, g)
+    ours, gi, gg = _port_grads(img, grid, g)
+    np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
+    assert _rel(gi, gi_r) <= 1e-5
+    assert _rel(gg, gg_r) <= 1e-5
+
+
 # --- on the card -----------------------------------------------------------
 
 @pytest.fixture

@@ -32,7 +32,8 @@
 //     memory once with cp.async (16 bytes where W * C % 4 == 0 and src is
 //     aligned), so each source row leaves HBM once and every gather hits
 //     shared memory. The caller picks R from W * C so the band fits and
-//     the grid fills the card in about one wave (ops/warp.py);
+//     the grid fills the card in about one wave at >= 2 blocks per SM,
+//     else R = 1 (ops/warp.py);
 //   * a thread computes whole pixels: taps once per pixel, all C channels
 //     from the staged rows. A warp takes 128 consecutive pixels of a row,
 //     lane l the pixels l, l + 32, l + 64, l + 96, so x loads are

@@ -112,7 +112,10 @@ def compute_density(outputs: dict, per_image: bool = False) -> Tensor:
         raise ValueError("compute_density: no (\"wavelet_mask\", i) "
                          "entries in outputs — dense-decoder outputs "
                          "have no density (run with thresh_ratio set)")
-    return num / den
+    # a tensor divisor: ATen divides a CUDA tensor by a host scalar as a
+    # product with its float32 reciprocal, which can put a full mask at
+    # 1 - 2^-24
+    return num / torch.tensor(float(den), device=num.device)
 
 
 # Analytic op counters: the reference's accounting, reproduced exactly.

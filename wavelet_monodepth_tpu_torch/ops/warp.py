@@ -174,29 +174,48 @@ def _raise_on(err: int, what: str) -> None:
                            .decode())
 
 
-def band_rows(src: Tensor) -> int:
-    """Output rows per forward block: the fewest whose grid fits the card
-    in one wave of resident blocks (blocks per SM bounded by shared
-    memory), at most what fits one block (its rows and the two neighbours
-    they can sample); raises when not even one row fits."""
-    n, h, w, c = src.shape
+def fwd_smem_bytes(rows: int, w: int, c: int) -> int:
+    """Shared memory of a forward block of `rows` output rows
+    (csrc/banded_warp.cu: fwd_smem_floats)."""
     stage = _FWD_STAGE * c if c <= 4 else 0
+    return 4 * (-(-(rows + 2) * w * c // 4) * 4 + stage)
 
-    def smem(rows):                 # csrc/banded_warp.cu: fwd_smem_floats
-        return 4 * (-(-(rows + 2) * w * c // 4) * 4 + stage)
 
-    if smem(1) > _SMEM_LIMIT:
+def bwd_smem_bytes(w: int, c: int, with_src: bool) -> int:
+    """Shared memory of a backward block: the source row's W * C
+    accumulator when src needs a gradient, else none."""
+    return 4 * w * c if with_src else 0
+
+
+def blocks_per_sm(rows: int, w: int, c: int) -> int:
+    """Forward blocks of `rows` output rows resident per SM (shared memory
+    and the thread count bound it)."""
+    return min(_SM_SMEM // (fwd_smem_bytes(rows, w, c) + 1024), _SM_BLOCKS)
+
+
+def band_rows(src: Tensor, sms: int = None) -> int:
+    """Output rows per forward block: the fewest whose grid fits the card
+    in one wave of resident blocks with at least 2 blocks per SM; 1 row
+    where none does (more, smaller blocks then beat one wave of 1 block
+    per SM: at (6, 320, 1024, 3) 29.5 us against 50.7 for the one wave of
+    15-row bands, kernel_ab.py on the H100). Raises when a band of one row
+    and its two neighbours does not fit a block. sms: the card's
+    multiprocessor count (read from src's device by default)."""
+    n, h, w, c = src.shape
+    if fwd_smem_bytes(1, w, c) > _SMEM_LIMIT:
         raise ValueError(f"W * C = {w * c} floats: a band of one row and "
                          f"its two neighbours exceeds a block's shared "
                          f"memory")
-    sms = torch.cuda.get_device_properties(src.device).multi_processor_count
-    rows = 1
-    while rows < h and smem(rows + 1) <= _SMEM_LIMIT:
-        per_sm = min(_SM_SMEM // (smem(rows) + 1024), _SM_BLOCKS)
-        if n * -(-h // rows) <= sms * per_sm:
+    if sms is None:
+        sms = torch.cuda.get_device_properties(
+            src.device).multi_processor_count
+    for rows in range(1, h + 1):
+        per_sm = blocks_per_sm(rows, w, c)
+        if fwd_smem_bytes(rows, w, c) > _SMEM_LIMIT or per_sm < 2:
             break
-        rows += 1
-    return rows
+        if n * -(-h // rows) <= sms * per_sm:
+            return rows
+    return 1
 
 
 def _launch_fwd(src: Tensor, x: Tensor, yr: Tensor,
@@ -223,7 +242,7 @@ def _launch_bwd(src: Tensor, x: Tensor, yr: Tensor, g: Tensor,
                 with_src: bool):
     _check(src, x, yr, g)
     n, h, w, c = src.shape
-    if with_src and w * c * 4 > _SMEM_LIMIT:
+    if bwd_smem_bytes(w, c, with_src) > _SMEM_LIMIT:
         raise ValueError(f"W * C = {w * c} floats exceed a block's shared "
                          f"memory")
     gsrc = torch.empty_like(src) if with_src else None

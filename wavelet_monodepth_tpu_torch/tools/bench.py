@@ -90,11 +90,13 @@ def device_info(dev: torch.device) -> dict:
             "torch_name": torch.cuda.get_device_name(dev)}
 
 
-def _windows(cells: dict, iters: dict, windows: int, dev) -> dict:
-    """{cell: [ms per call of each window]}, the cells interleaved."""
+def _windows(cells: dict, iters: dict, windows: int, dev,
+             warmup: int = 3) -> dict:
+    """{cell: [ms per call of each window]}, the cells interleaved, after
+    `warmup` calls of each."""
     cuda = dev.type == "cuda"
     for fn in cells.values():
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
     if cuda:
         torch.cuda.synchronize(dev)
@@ -119,7 +121,8 @@ def _windows(cells: dict, iters: dict, windows: int, dev) -> dict:
     return ms
 
 
-def measure(cells: dict, iters: dict, windows: int, dev) -> dict:
+def measure(cells: dict, iters: dict, windows: int, dev,
+            warmup: int = 3) -> dict:
     """{cell: {"ms", "ms_min", "ms_max", "spread", "attempts"}}; "ms" is
     the median window, or None when the windows still spread past
     MAX_SPREAD after RETRIES re-measurements."""
@@ -128,7 +131,7 @@ def measure(cells: dict, iters: dict, windows: int, dev) -> dict:
     for attempt in range(1 + RETRIES):
         if not todo:
             break
-        got = _windows(todo, iters, windows, dev)
+        got = _windows(todo, iters, windows, dev, warmup)
         for k, v in got.items():
             spread = max(v) / min(v)
             out[k] = {"ms": statistics.median(v), "ms_min": min(v),

@@ -13,14 +13,18 @@ Without --use_wavelets the folder holds the baseline DepthDecoder
 (monodepth2's, `models/decoders_kitti.DepthDecoder`), always dense.
 
 The feed ships uint8 frames, which the forward scales on the card;
---host_augment ships float32 instead. Runs on --device (cuda, which
-raises without a card, or cpu).
+--host_augment ships float32 instead. --native_decode decodes and
+resizes each batch in one call to the repo's threaded C++ decoder
+(`data/native_loader.py`: OpenCV's LANCZOS4, about 1e-3 per pixel from
+the PIL feed's LANCZOS) on max(1, --num_workers) threads; it raises when
+that library cannot be built, and never falls back to PIL. Runs on
+--device (cuda, which raises without a card, or cpu).
 
 Usage:
   python -m wavelet_monodepth_tpu_torch.tools.evaluate_depth \
       --data_path ROOT --torch_model_path WEIGHTS --eval_stereo \
       --use_wavelets [--use_sparse --threshold 0.1] [--post_process] \
-      [--bfloat16] [--device cpu]
+      [--bfloat16] [--native_decode] [--device cpu]
 """
 
 from __future__ import annotations
@@ -95,11 +99,16 @@ def eval_dataset(opts, files):
         device_augment=not opts.host_augment)
 
 
-def eval_batches(opts, ds):
-    """Numpy batches of the eval images: --batch_size at a time, one at a
-    time when coefficients are saved (the reference saves per image)."""
+def eval_batch_size(opts) -> int:
+    """--batch_size, or 1 when coefficients are saved (the reference
+    saves per image)."""
     coeff_mode = opts.save_pred_disps and opts.use_wavelets
-    bs = 1 if coeff_mode else max(1, opts.batch_size)
+    return 1 if coeff_mode else max(1, opts.batch_size)
+
+
+def eval_batches(opts, ds):
+    """Numpy batches of the eval images through the dataset's PIL feed."""
+    bs = eval_batch_size(opts)
     key = ("color", "0", 0) if opts.host_augment else ("color_u8", "0", 0)
     buf = []
     for i in range(len(ds)):
@@ -109,6 +118,26 @@ def eval_batches(opts, ds):
             buf = []
     if buf:
         yield np.stack(buf)
+
+
+def native_batches(opts, ds, files):
+    """Numpy batches of the eval images through the native decoder: one
+    call per batch on max(1, --num_workers) threads, uint8 unless
+    --host_augment (`tools/evaluate_depth.py:113-131` of the JAX
+    package)."""
+    from ..data import native_loader as nl
+    paths = []
+    for line in files:
+        parts = line.split()
+        frame, side = ((int(parts[1]), parts[2]) if len(parts) == 3
+                       else (0, None))
+        paths.append(ds.get_image_path(parts[0], frame, side))
+    decode = (nl.decode_resize_batch if opts.host_augment
+              else nl.decode_resize_batch_u8)
+    bs = eval_batch_size(opts)
+    for b0 in range(0, len(paths), bs):
+        yield decode(paths[b0:b0 + bs], opts.height, opts.width,
+                     num_threads=max(1, opts.num_workers))
 
 
 def save_benchmark_pngs(pred_disps: np.ndarray, save_dir: str) -> None:
@@ -133,10 +162,9 @@ def main(argv=None):
     opts, torch_model_path = parse_args(argv)
     if int(opts.eval_mono) + int(opts.eval_stereo) != 1:
         raise ValueError("choose --eval_mono or --eval_stereo")
-    if opts.native_decode:
-        raise NotImplementedError(
-            "--native_decode is not ported yet (ROADMAP.md, Queue 1 item 5: "
-            "data/native_loader.py)")
+    if opts.native_decode and opts.ext_disp_to_eval is None:
+        from ..data import native_loader
+        native_loader.load_library()    # raises naming what is missing
     device = device_rule.resolve_device(opts.device)
     device_rule.pin_float32(device)
     split_dir = resolve_split_dir(opts.eval_split, opts.data_path)
@@ -147,8 +175,11 @@ def main(argv=None):
         forward = load_forward(opts, device, torch_model_path)
         thresh = opts.threshold if (opts.use_sparse
                                     and opts.use_wavelets) else None
+        ds = eval_dataset(opts, files)
+        batches = (native_batches(opts, ds, files) if opts.native_decode
+                   else eval_batches(opts, ds))
         pred_disps, info = kitti_eval.predict_disps(
-            forward, eval_batches(opts, eval_dataset(opts, files)),
+            forward, batches,
             device=device, min_depth=opts.min_depth,
             max_depth=opts.max_depth, post_process=opts.post_process,
             sparse_threshold=thresh,

@@ -12,11 +12,12 @@ prints one JSON line:
         10% maskgen point (chip_smoke.PATH_CONVS, the heads' conv twice),
         each wrapper's median ms (CUDA events, 3 interleaved windows of
         20 calls), and the 12-launch sums per wrapper;
-  warp  the K3 forward per launch at (12, 192, 640, 3) on a stereo grid of
-        maskgen depth (50 calls queued behind a device-side sleep, median
-        of 3 windows), with the tree's own band choice and, where the
-        tree takes one, each of --warp-rows output rows per block; and
-        F.grid_sample on the same grid;
+  warp  the K3 forward per launch at (12, 192, 640, 3), or --warp-shape
+        N H W (C = 3), on a stereo grid of maskgen depth (50 calls queued
+        behind a device-side sleep, median of 3 windows), with the tree's
+        own band choice and, where the tree takes one, each of
+        --warp-rows output rows per block; and F.grid_sample on the same
+        grid;
   fused K2's bare launch (`fused_stage._launch`, padding and flags done
         beforehand) per scale 3/2/1 at B=16 and B=1 on chip_smoke's stage
         inputs (a seeded random net's decoder under the 10% maskgen
@@ -63,7 +64,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 PARTS = ("conv", "warp", "fused", "scatter", "compact")
 
 
-def worker(tree: str, warp_rows, parts) -> dict:
+def worker(tree: str, warp_rows, parts, warp_shape=None) -> dict:
     """Times `tree`'s kernels in this process (call once per process)."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -85,7 +86,7 @@ def worker(tree: str, warp_rows, parts) -> dict:
     if "conv" in parts:
         out.update(time_conv(cs, dev))
     if "warp" in parts:
-        out["warp"] = time_warp(cs, dev, warp_rows)
+        out["warp"] = time_warp(cs, dev, warp_rows, warp_shape)
     if {"fused", "scatter", "compact"} & set(parts):
         enc, dec = cs.build_models(dev)
         if "fused" in parts:
@@ -129,12 +130,13 @@ def time_conv(cs, dev) -> dict:
             "conv_sum_ms_b1": sums[1]}
 
 
-def time_warp(cs, dev, warp_rows) -> dict:
+def time_warp(cs, dev, warp_rows, shape=None) -> dict:
     import torch
     import torch.nn.functional as F
     from wavelet_monodepth_tpu_torch.ops import warp
     from wavelet_monodepth_tpu_torch.utils import maskgen as mg
-    n, h, w, c = cs.TRAIN_B, cs.H, cs.W, 3
+    n, h, w = shape or (cs.TRAIN_B, cs.H, cs.W)
+    c = 3
     g = torch.Generator().manual_seed(21)
     img = torch.rand(n, h, w, c, generator=g).to(dev)
     scene = torch.from_numpy(mg.synthetic_depth_scene(n, h, w, seed=3)).to(dev)
@@ -260,19 +262,24 @@ def main(argv=None) -> int:
     ap.add_argument("--warp-rows", type=int, nargs="*", default=[],
                     help="K3 forward output rows per block to time besides "
                          "the tree's default (trees that take a choice)")
+    ap.add_argument("--warp-shape", type=int, nargs=3, default=None,
+                    metavar=("N", "H", "W"),
+                    help="the K3 forward's shape (default 12 192 640)")
     ap.add_argument("--parts", nargs="+", choices=PARTS, default=list(PARTS),
                     help="what to time (default: all)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.trees[0], args.warp_rows, args.parts)),
-              flush=True)
+        print(json.dumps(worker(args.trees[0], args.warp_rows, args.parts,
+                                args.warp_shape)), flush=True)
         return 0
     runs = []
     for tree in args.trees:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", tree,
              "--warp-rows", *map(str, args.warp_rows),
+             *(["--warp-shape", *map(str, args.warp_shape)]
+               if args.warp_shape else []),
              "--parts", *args.parts],
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:

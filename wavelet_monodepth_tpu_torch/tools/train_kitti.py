@@ -5,7 +5,12 @@ Counterpart of `wavelet_monodepth_tpu/tools/train_kitti.py`, with its
 flags (`utils/config.py`): threaded item loading, pinned host-to-device
 copies, the train step, the reference's log cadence with one-batch
 validation on each log step, and per-epoch checkpoints in the reference's
-layout. It runs on the card (--device cuda, the default, raises without
+layout. Each log step also writes the reference's visuals
+(`trainer.py:661-720`) of the train batch, forwarded once more through
+the eval step, and of the validation batch. That extra forward runs only
+when there is a train writer, without gradients, on the BN running
+statistics, with its own noise generator, so the training run (weights,
+BN statistics, Adam, the noise stream) is the same with or without it. It runs on the card (--device cuda, the default, raises without
 one) unless --device cpu is given. --bfloat16 trains in bf16 mixed
 precision (`train/kitti.py`); the master parameters, Adam's moments and
 the BN statistics stay float32, and so do the checkpoints.
@@ -31,9 +36,11 @@ import os
 import time
 
 
-def main(argv=None, device=None) -> dict:
+def main(argv=None, device=None, logger=None) -> dict:
     """Train; returns {"steps", "val_batches", "losses" (the logged train
-    losses), "checkpoints" (folders written)}."""
+    losses), "val_losses", "checkpoints" (folders written)}. logger: a
+    SummaryLogger in place of the tensorboardX one under
+    log_dir/model_name."""
     import torch
 
     from ..data import kitti as kitti_data
@@ -78,6 +85,7 @@ def main(argv=None, device=None) -> dict:
                             device=device)
     state = setup.init_state(torch.Generator().manual_seed(0))
     noise = torch.Generator(device=device).manual_seed(0)
+    vis_noise = torch.Generator(device=device).manual_seed(1)
 
     start_epoch = opts.start_epoch
     resume_folder = opts.load_weights_folder
@@ -94,7 +102,7 @@ def main(argv=None, device=None) -> dict:
     step = start_epoch * effective_spe
     state.step = step
 
-    logger = SummaryLogger(log_path)
+    logger = logger if logger is not None else SummaryLogger(log_path)
     timer = TrainTimer(effective_spe * opts.num_epochs)
     train_src = parallel_batches(train_ds, opts.batch_size,
                                  num_workers=opts.num_workers, shuffle=True)
@@ -107,7 +115,7 @@ def main(argv=None, device=None) -> dict:
     print(f"There are {len(train_files)} training and {len(val_files)} "
           f"validation items")
     summary = {"steps": 0, "val_batches": 0, "losses": [],
-               "checkpoints": []}
+               "val_losses": [], "checkpoints": []}
     try:
         for epoch in range(start_epoch, opts.num_epochs):
             for batch_idx0 in range(0, effective_spe, k_steps):
@@ -135,13 +143,22 @@ def main(argv=None, device=None) -> dict:
                                          opts.batch_size, durations,
                                          host["loss"]))
                     logger.scalars("train", host, step + k_steps - 1)
+                    if logger.active("train"):
+                        toutputs, _ = setup.eval_step(state, batch,
+                                                      vis_noise)
+                        logger.log_kitti_visuals("train", batch, toutputs,
+                                                 opts, step + k_steps - 1)
+                        del toutputs
                     # one-batch validation (`trainer.py:312-327`)
-                    _, vlosses = setup.eval_step(state, next(val_iter),
-                                                 noise)
+                    vbatch = next(val_iter)
+                    voutputs, vlosses = setup.eval_step(state, vbatch, noise)
+                    vhost = {k: float(v) for k, v in vlosses.items()}
                     summary["val_batches"] += 1
-                    logger.scalars("val",
-                                   {k: float(v) for k, v in vlosses.items()},
-                                   step + k_steps - 1)
+                    summary["val_losses"].append(vhost)
+                    logger.scalars("val", vhost, step + k_steps - 1)
+                    logger.log_kitti_visuals("val", vbatch, voutputs, opts,
+                                             step + k_steps - 1)
+                    del voutputs
                 step += k_steps
 
             if (epoch + 1) % opts.save_frequency == 0:

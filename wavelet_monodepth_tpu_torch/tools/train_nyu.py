@@ -7,7 +7,12 @@ Counterpart of `wavelet_monodepth_tpu/tools/train_nyu.py`, with its flags
 print every 5 steps, and at every `log_frequency`-th step the train
 losses and one validation batch's losses, drawn from the "test" dataset
 (the same nyu2_train rows with the test transform, as in the reference),
-as TensorBoard scalars. Per epoch it writes
+as TensorBoard scalars, with the reference's visuals of both batches
+(`NYUv2/train.py:113-163`: colour, GT and predicted disparities, and
+under --use_wavelets the predicted and GT coefficients, the GT from
+`haar_dwt_J(depth_n, 4)`, as images and histograms). The train batch is
+forwarded once more through the eval step for them, only when there is
+a train writer, without gradients, on the BN running statistics. Per epoch it writes
 `<log_dir>/<model_name>/models/weights_<epoch>/{model,adam}.pth` and
 `models/opt.json` (`utils/checkpoint.py`), which
 `tools/evaluate_nyu.py --load_weights_folder` reads;
@@ -17,8 +22,6 @@ the default, raises without one) unless --device cpu is given;
 --bfloat16 trains in JAX's mixed precision (`train/nyu.py`), and the
 checkpoints stay float32.
 
-Scalars only: the coefficient images and histograms of the JAX CLI
-(`log_nyu_visuals`) are not ported yet (ROADMAP.md, Queue 1 item 5).
 --data_axis > 1 and the multi-host flags raise (Queue 1 item 6).
 
 Usage:
@@ -32,14 +35,17 @@ import os
 import time
 
 
-def main(argv=None, device=None) -> dict:
+def main(argv=None, device=None, logger=None) -> dict:
     """Train; returns {"steps", "val_batches", "losses" (the logged train
-    losses), "val_losses", "checkpoints" (folders written)}."""
+    losses), "val_losses", "checkpoints" (folders written)}. logger: a
+    SummaryLogger in place of the tensorboardX one under
+    log_dir/model_name."""
     import torch
 
     from ..data import nyu as nyu_data
     from ..data.loader import parallel_batches, to_device
     from ..ops.augment import expand_nyu
+    from ..ops.wavelets import haar_dwt_J
     from ..train.nyu import NyuTrainSetup
     from ..utils import checkpoint as ckpt
     from ..utils import device as device_rule
@@ -71,7 +77,10 @@ def main(argv=None, device=None) -> dict:
     n_batches = len(train_ds) // opts.batch_size
     step = start_epoch * n_batches
     state.step = step
-    logger = SummaryLogger(log_path)
+    logger = logger if logger is not None else SummaryLogger(log_path)
+
+    def gt_wavelets(depth_n):
+        return haar_dwt_J(depth_n, 4) if opts.use_wavelets else None
     train_src = parallel_batches(train_ds, opts.batch_size,
                                  num_workers=opts.num_workers)
     val_src = parallel_batches(test_ds, opts.batch_size,
@@ -96,14 +105,26 @@ def main(argv=None, device=None) -> dict:
                     host = {k: float(v) for k, v in losses.items()}
                     summary["losses"].append(host)
                     logger.scalars("train", host, step)
+                    if logger.active("train"):
+                        img_f, dep_f = expand_nyu(batch["image"],
+                                                  batch["depth"])
+                        depth_n = setup.targets(dep_f)
+                        logger.log_nyu_visuals(
+                            "train", img_f, depth_n,
+                            setup.eval_step(state, batch["image"]),
+                            gt_wavelets(depth_n), step)
                     vbatch = next(val_iter)
                     outputs = setup.eval_step(state, vbatch["image"])
-                    _, vdepth = expand_nyu(vbatch["image"], vbatch["depth"])
+                    vimg_f, vdepth = expand_nyu(vbatch["image"],
+                                                vbatch["depth"])
+                    vdepth_n = setup.targets(vdepth)
                     vlosses = {k: float(v) for k, v in setup.compute_losses(
-                        outputs, setup.targets(vdepth)).items()}
+                        outputs, vdepth_n).items()}
                     summary["val_batches"] += 1
                     summary["val_losses"].append(vlosses)
                     logger.scalars("val", vlosses, step)
+                    logger.log_nyu_visuals("val", vimg_f, vdepth_n, outputs,
+                                           gt_wavelets(vdepth_n), step)
                 t_end = time.time()
                 step += 1
             folder = ckpt.save_nyu_checkpoint(log_path, epoch, state, opts)

@@ -77,7 +77,15 @@ class KittiTrainSetup:
         """device: where the modules and steps run; None follows
         `opts.device` (the card by default), which raises without one."""
         opts.validate_for_training()
-        for name, default in (("data_axis", 1), ("native_decode", False),
+        if opts.native_decode:
+            # JAX's trainer accepts the flag and never reads it; a flag
+            # that silently does nothing is refused here
+            raise NotImplementedError(
+                "--native_decode is an evaluation flag: the JAX package's "
+                "trainer does not read it (only its tools/evaluate_depth.py "
+                "and tools/serve_artifact.py do), so training refuses it; "
+                "tools/evaluate_depth.py --native_decode takes it")
+        for name, default in (("data_axis", 1),
                               ("coordinator_address", None),
                               ("num_processes", None)):
             if getattr(opts, name) != default:

@@ -84,7 +84,7 @@ class KittiOptions:
     # additions of the JAX package
     data_axis: int = 1                     # data-parallel device count (the port runs one card)
     bfloat16: bool = False                 # bf16 mixed precision: the networks run in bf16 over f32 master params and Adam state (train/kitti.py)
-    native_decode: bool = False            # eval feed via the C++ decoder (not ported yet)
+    native_decode: bool = False            # eval feed via the C++ threaded decoder (data/native_loader.py; cv2 LANCZOS4 vs PIL LANCZOS differ ~1e-3/px); the trainer refuses it
     stereo_warp_kernel: str = "auto"       # "s"-frame/hint warp: "auto"/"off" = F.grid_sample, "on" = the banded warp kernel (ops/warp.py)
     checkpoint_backend: str = "msgpack"    # the JAX package's state format; the port writes the reference's .pth folders whatever this says
     auto_resume: bool = False              # restore the newest weights_<epoch> under log_dir/model_name and continue from epoch+1 (--load_weights_folder wins)
