@@ -243,7 +243,35 @@ inputs, in phases; any failure raises and exits non-zero:
      on the host (rows within 1e-4), with the two feeds' times; without
      them, --native_decode must raise the port's NativeUnavailable, and
      {"phase": "native", "available": false, "missing": [...]} says what
-     was absent.
+     was absent;
+ 20. serving_tools: on phase 11's eigen mount, R18 training checkpoint
+     and seeded R50 1024x320 folder, with the six kernels' launch
+     counters read before and after (the path is the masked-dense decode
+     JAX exports too: none may move). (a) tools/export_serving.main on
+     the card, the .pt2 loaded by tools/serve_artifact.load_program and
+     held to the direct forward of the same program on the same input:
+     KITTI R18 640x192 B=1 dense, sparse 0.1 (total_ops equal) and
+     --uint8_input within 1e-4, --bfloat16 within the bf16 bounds of the
+     float32 forward; NYU DenseNet161 640x480 B=1 sparse 0.05 within
+     1e-4, total_ops equal. (b) an artifact exported from the training
+     checkpoint serves a bundle of seeded weights: equal to their direct
+     forward within 1e-4. (c) tools/serve_artifact.main over the mount's
+     16 test frames (a B=16 artifact of the checkpoint, --bundle_params):
+     16 _disp.npy files, each within 1e-4 of the direct forward on the
+     same decoded batch; the feed and ms/img. (d) artifact vs direct
+     forward, R18 B=1 and B=16 f32 (tools/bench.measure; reported, not
+     gated). (e) tools/bench_grid.main, all five configs at B=4 (JAX's
+     default 16) and 3 calls per window (9), cut for the time limit, 3
+     windows: no row may carry an
+     _error key, KITTI densities in 0.09-0.11. (f) tools/profile_device.
+     main, R18 640x192 B=16 dense and --threshold 0.2: the printed rows
+     sum to the total within 1%, UNATTRIBUTED under 5% of it, the total
+     within [0.5, 1.05] of the same forward's CUDA-event time. (g)
+     tools/golden_check with no mount (11 absent, exit 0; 1 with
+     --require_all) and with WMD_KITTI_DATA / WMD_KITTI_WEIGHTS /
+     WMD_KITTI_WEIGHTS_R50_1024 on the mount and folders (each [ OK ] or
+     a [FAIL] with its reason, printed); tools/fetch_pretrained --check
+     on both folders names resnet18 and resnet50.
 
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
@@ -4349,6 +4377,284 @@ def phase_native(dev, eval_root: str, folder18: str) -> None:
     require(exact and gap <= TOL, ("native decoder", exact, gap))
 
 
+# --- phase 20: the serving artifact and the measurement tools ----------------
+
+SERVE_BATCH = 16
+GRID_BATCH = 4           # JAX's grid runs B=16; cut for the time limit
+GRID_CALLS = 3           # calls per window (the CLI's --k1 default 9)
+GRID_DENSITY = (0.09, 0.11)
+
+
+def export_and_compare(dev, name: str, argv: list, tmp: str) -> dict:
+    """tools/export_serving.main(argv) on the card, the artifact loaded
+    with the program's own state dict and held to the program's direct
+    forward on a seeded input (phase 20 (a))."""
+    import torch
+    from wavelet_monodepth_tpu_torch.tools import export_serving as es
+    from wavelet_monodepth_tpu_torch.tools import serve_artifact as sa
+    prefix = os.path.join(tmp, name)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        _, program = es.main(argv + ["--out", prefix, "--device", str(dev)])
+    export_s = time.perf_counter() - t0
+    served, meta = sa.load_program(prefix, dev, program.state_dict())
+    gen = torch.Generator().manual_seed(21)
+    shape = (meta["batch"], meta["height"], meta["width"], 3)
+    u8 = meta["input_dtype"] == "uint8"
+    x = (torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+         if u8 else torch.rand(shape, generator=gen)).to(dev)
+    with torch.inference_mode():
+        via, direct = served(x), program(x)
+    sparse = isinstance(via, tuple)
+    disp_via, disp_direct = (via[0], direct[0]) if sparse else (via, direct)
+    line = {"phase": "serving_export", "case": name,
+            "platforms": meta["platforms"], "dtype": meta["dtype"],
+            "input_dtype": meta["input_dtype"], "export_seconds": export_s,
+            "pt2_bytes": os.path.getsize(prefix + ".pt2"),
+            "vs_direct_max_abs": float((disp_via - disp_direct).abs().max()),
+            "finite": bool(torch.isfinite(disp_via).all())}
+    if sparse:
+        line["total_ops_equal"] = bool(torch.equal(via[1], direct[1]))
+        line["gflops"] = float(via[1].mean()) / 1e9
+    return line, program, served, x
+
+
+def phase_serving_tools(dev, eval_root: str, folder18: str, folder50: str,
+                        tmp: str) -> None:
+    """The serving artifact and the pre-flight/measurement tools (module
+    docstring, phase 20)."""
+    import glob
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from wavelet_monodepth_tpu_torch.tools import bench_grid as bg
+    from wavelet_monodepth_tpu_torch.tools import export_serving as es
+    from wavelet_monodepth_tpu_torch.tools import fetch_pretrained as fp
+    from wavelet_monodepth_tpu_torch.tools import golden_check as gc
+    from wavelet_monodepth_tpu_torch.tools import profile_device as pd
+    from wavelet_monodepth_tpu_torch.tools import serve_artifact as sa
+    from wavelet_monodepth_tpu_torch.tools.bench import measure
+
+    t_phase = time.perf_counter()
+    launches_before = kernel_launch_total()
+    root = os.path.join(tmp, "serving")
+    os.makedirs(root)
+    kitti = ["--torch_model_path", folder18, "--height", str(H),
+             "--width", str(W)]
+    # (a) export -> load -> compare, and (b) the checkpoint swap
+    lines = {}
+    for name, argv in (
+            ("kitti_r18_dense_f32", kitti),
+            ("kitti_r18_sparse01_f32", kitti + ["--use_sparse",
+                                                "--threshold", "0.1"]),
+            ("kitti_r18_dense_bf16", kitti + ["--bfloat16"]),
+            ("kitti_r18_dense_uint8", kitti + ["--uint8_input"]),
+            ("nyu_dense161_sparse005_f32",
+             ["--family", "nyu", "--height", str(NYU_H), "--width",
+              str(NYU_W), "--use_sparse", "--threshold", str(NYU_THRESH)])):
+        line, program, served, x = export_and_compare(dev, name, argv, root)
+        if name == "kitti_r18_dense_bf16":
+            f32 = es.build(es.parse_args(kitti + ["--out", "-"]), dev)
+            with torch.inference_mode():
+                gap = (served(x) - f32(x)).abs()
+            line["vs_f32_disp"] = {"max": float(gap.max()),
+                                   "mean": float(gap.mean())}
+            ok = (gap.max() <= BF16_DISP_MAX and gap.mean() <= BF16_DISP_MEAN
+                  and line["vs_direct_max_abs"] <= BF16_DISP_MAX)
+        elif name == "kitti_r18_dense_uint8":
+            f32 = es.build(es.parse_args(kitti + ["--out", "-"]), dev)
+            with torch.inference_mode():
+                line["vs_f32_of_x_over_255_max_abs"] = float(
+                    (served(x) - f32(x.float() / 255.0)).abs().max())
+            ok = max(line["vs_direct_max_abs"],
+                     line["vs_f32_of_x_over_255_max_abs"]) <= TOL
+        else:
+            ok = (line["vs_direct_max_abs"] <= TOL
+                  and line.get("total_ops_equal", True))
+        emit({**line, **_card})
+        require(ok and line["finite"], line)
+        lines[name] = line
+        del program, served, x
+    torch.cuda.empty_cache()
+
+    swap = os.path.join(root, "swap")
+    with contextlib.redirect_stdout(sys.stderr):
+        _, program_a = es.main(kitti + ["--out", swap, "--bundle_params",
+                                        "--device", str(dev)])
+        program_b = es.build(es.parse_args(["--out", "-"]), dev)  # seeded
+    torch.save(program_b.state_dict(), swap + ".params.pt")
+    served, _ = sa.load_program(swap, dev)
+    x = torch.rand((1, H, W, 3), generator=torch.Generator().manual_seed(22)
+                   ).to(dev)
+    with torch.inference_mode():
+        via, want, was = served(x), program_b(x), program_a(x)
+    swap_line = {"phase": "serving_swap",
+                 "vs_bundle_direct_max_abs": float((via - want).abs().max()),
+                 "vs_export_checkpoint_max_abs": float(
+                     (via - was).abs().max())}
+    emit(swap_line)
+    require(swap_line["vs_bundle_direct_max_abs"] <= TOL
+            and swap_line["vs_export_checkpoint_max_abs"] > 1e-3, swap_line)
+    del program_a, program_b, served
+
+    # (c) serve the mount's 16 test frames with a B=16 artifact
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    with open(os.path.join(eval_root, "splits", "eigen",
+                           "test_files.txt")) as f:
+        tests = [ln.split() for ln in f.read().splitlines() if ln.strip()]
+    for i, (folder, frame, _) in enumerate(tests):
+        src = glob.glob(os.path.join(eval_root, folder, "image_02", "data",
+                                     f"{int(frame):010d}.*"))[0]
+        shutil.copy(src, os.path.join(images, f"{i:02d}" +
+                                      os.path.splitext(src)[1]))
+    b16 = os.path.join(root, "r18_b16")
+    with contextlib.redirect_stdout(sys.stderr):
+        _, program = es.main(kitti + ["--out", b16, "--batch",
+                                      str(SERVE_BATCH), "--bundle_params",
+                                      "--device", str(dev)])
+        res = sa.main(["--artifact", b16, "--images", images, "--out",
+                       os.path.join(root, "preds"), "--device", str(dev)])
+    paths = sa._resolve_images(images)
+    batch, feed = sa._decode(paths, H, W, 4)
+    with torch.inference_mode():
+        direct = program(torch.from_numpy(batch).to(dev).float() / 255.0)
+    direct = direct.cpu().numpy()
+    files = sorted(glob.glob(os.path.join(root, "preds", "*_disp.npy")))
+    gap = max(float(np.abs(np.load(p) - direct[i, :, :, 0]).max())
+              for i, p in enumerate(files))
+    serve_line = {"phase": "serving_serve", "images": len(paths),
+                  "npy_files": len(files), "feed": res["feed"],
+                  "decode_feed": feed, "ms_per_image": res["ms_per_image"],
+                  "seconds": res["seconds"], "vs_direct_max_abs": gap,
+                  **_card}
+    emit(serve_line)
+    require(len(files) == len(paths) == EVAL_TEST_FRAMES and gap <= TOL
+            and res["feed"] == feed, serve_line)
+
+    # (d) the artifact against the direct forward, B=1 and B=16 f32
+    served16, _ = sa.load_program(b16, dev)
+    b1 = os.path.join(root, "kitti_r18_dense_f32")
+    served1, _ = sa.load_program(b1, dev, program.state_dict())
+    x16 = torch.from_numpy(batch).to(dev).float() / 255.0
+    x1 = x16[:1].contiguous()
+
+    def call(fn, x):
+        def run():
+            with torch.inference_mode():
+                return fn(x)
+        return run
+    cells = {"artifact_b1": call(served1, x1), "direct_b1": call(program, x1),
+             "artifact_b16": call(served16, x16),
+             "direct_b16": call(program, x16)}
+    timed = measure(cells, {"artifact_b1": 30, "direct_b1": 30,
+                            "artifact_b16": 10, "direct_b16": 10}, 3, dev)
+    emit({"phase": "serving_timing", "model": "kitti_r18_640x192_f32",
+          "cells": timed,
+          "artifact_over_direct_b1": ratio(timed, "artifact_b1",
+                                           "direct_b1"),
+          "artifact_over_direct_b16": ratio(timed, "artifact_b16",
+                                            "direct_b16"), **_card})
+    del served1, served16, program, cells
+    torch.cuda.empty_cache()
+
+    # (e) the grid
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rows = bg.main(["--batch", str(GRID_BATCH), "--windows", "3",
+                        "--k1", str(GRID_CALLS), "--device", str(dev)])
+    emit({"phase": "bench_grid", "batch": GRID_BATCH, "rows": rows,
+          "seconds": time.perf_counter() - t0, **_card})
+    for row in rows:
+        require(not [k for k in row if k.endswith("_error")], row)
+        if row["config"].startswith("kitti"):
+            require(GRID_DENSITY[0] <= row["density"] <= GRID_DENSITY[1],
+                    row)
+    torch.cuda.empty_cache()
+
+    # (f) the profiler's attribution
+    for thresh in (None, 0.2):
+        argv = ["--batch", str(SERVE_BATCH), "--device", str(dev),
+                "--trace_dir", os.path.join(root, "trace")]
+        argv += [] if thresh is None else ["--threshold", str(thresh)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            prof = pd.main(argv)
+        printed = sum(float(ln.split()[0])
+                      for ln in buf.getvalue().splitlines()[1:])
+        fwd, _ = pd.build_forward(pd.parse_args(argv), dev)
+        event_ms = time_variants({"forward": fwd}, iters=8)["forward"]
+        # the same forward in a plain trace (no ranges): the union of its
+        # device spans, the busy time the rows should add up to
+        _, by_kernel, _, busy, _ = trace_calls(fwd, 8)
+        total = prof["total_ms"]
+        groups = dict(prof["groups"])
+        line = {"phase": "profile_device", "threshold": thresh,
+                "batch": SERVE_BATCH, "total_ms": total,
+                "printed_rows_ms": printed,
+                "unattributed_share": groups.get(pd.UNATTRIBUTED, 0.0)
+                / total,
+                "forward_event_ms": event_ms,
+                "total_over_event_ms": total / event_ms["ms_median"],
+                "plain_trace_busy_ms": busy / 8e3,
+                "plain_trace_kernels": sum(v[0] for v in by_kernel.values())
+                / 8,
+                "top_rows": prof["groups"][:8], "rows": len(groups),
+                **_card}
+        emit(line)
+        require(abs(printed - total) <= 0.01 * total
+                and line["unattributed_share"] < 0.05
+                and 0.5 <= line["total_over_event_ms"] <= 1.05, line)
+
+    # (g) golden_check and fetch_pretrained on the mount and folders
+    buf = io.StringIO()
+    codes = (gc.main([], env={}, out=buf),
+             gc.main(["--require_all"], env={}, out=io.StringIO()))
+    absent = buf.getvalue().count("[ -- ]")
+    env = {"WMD_KITTI_DATA": eval_root, "WMD_KITTI_WEIGHTS": folder18,
+           "WMD_KITTI_WEIGHTS_R50_1024": folder50}
+    buf = io.StringIO()
+    code = gc.main([], env=env, out=buf)
+    status = {}
+    for ln in buf.getvalue().splitlines():
+        if ln.startswith(("[ OK ]", "[FAIL]")):
+            var = ln[7:].split(" ")[0]
+            status[var] = [ln[:6], []]
+        elif ln.startswith("       - "):
+            status[var][1].append(ln.strip()[2:])
+    reports = {k: fp.check_folder(v) for k, v in (("resnet18", folder18),
+                                                  ("resnet50", folder50))}
+    golden = {"phase": "golden_check", "no_mounts_exit": codes[0],
+              "no_mounts_require_all_exit": codes[1],
+              "no_mounts_absent": absent, "mounted_exit": code,
+              "mounted": status,
+              "fetch_pretrained": {k: r["details"] for k, r in
+                                   reports.items()}}
+    emit(golden)
+    require(codes == (0, 1) and absent == len(gc.MOUNTS) == 11
+            and set(status) == set(env)
+            and all(s == "[ OK ]" or (s == "[FAIL]" and why and not any(
+                "validator error" in w for w in why))
+                    for s, why in status.values())
+            and code == (1 if any(s == "[FAIL]" for s, _ in
+                                  status.values()) else 0), golden)
+    for depth, r in reports.items():
+        require(r["ok"] and f"imported as {depth} + wavelet decoder"
+                in r["details"], (depth, r))
+
+    moved = kernel_launch_total() - launches_before
+    emit({"phase": "serving_tools_done", "kernel_launches": moved,
+          "seconds": time.perf_counter() - t_phase})
+    require(moved == 0, ("serving tools launched a kernel", moved))
+
+
+def ratio(timed: dict, a: str, b: str):
+    """timed[a] / timed[b] of bench.measure's medians, or None."""
+    ms_a, ms_b = timed[a]["ms"], timed[b]["ms"]
+    return None if ms_a is None or ms_b is None else ms_a / ms_b
+
+
 def main():
     dev = phase_device()
     sys.path.insert(0, REPO)
@@ -4441,6 +4747,8 @@ def main():
         phase_soak(dev, root, tmp)
         phase_sparsity(dev, tmp)
         phase_native(dev, eval_root, folder18)
+        phase_serving_tools(dev, eval_root, folder18,
+                            os.path.join(tmp, EVAL_CONFIGS[1][0]), tmp)
     # ms: one K3 launch at (12, 192, 640, 3) (backward: the training
     # path's, no source-row pass); launches: the train main path's;
     # launches_kitti_pose: the M+S train main path's (phase 14);

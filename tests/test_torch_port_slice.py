@@ -98,6 +98,12 @@ PORT_MODULES = [
     "wavelet_monodepth_tpu_torch.tools.sparsity_sweep",
     "wavelet_monodepth_tpu_torch.tools.plot_sparsity_curve",
     "wavelet_monodepth_tpu_torch.tools.profile_model",
+    "wavelet_monodepth_tpu_torch.tools.export_serving",
+    "wavelet_monodepth_tpu_torch.tools.serve_artifact",
+    "wavelet_monodepth_tpu_torch.tools.bench_grid",
+    "wavelet_monodepth_tpu_torch.tools.profile_device",
+    "wavelet_monodepth_tpu_torch.tools.golden_check",
+    "wavelet_monodepth_tpu_torch.tools.fetch_pretrained",
 ]
 
 
