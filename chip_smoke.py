@@ -10,8 +10,8 @@ eigen-split evaluation (ResNet18 640x192 and ResNet50 1024x320), the
 NYUv2 serving and evaluation path (DenseNet161 + the wavelet decoder at
 640x480) and its training (the same model at batch 8), the 1024x320 B=6
 training of the published HR rows, the training visuals, a soak with a
-kill and a resume, the sparsity-curve tools and the native decoder,
-plus the fused wave stage kernel on the serving slice's own stage
+kill and a resume, the sparsity-curve tools, the native decoder and
+data-parallel training over two ranks, plus the fused wave stage kernel on the serving slice's own stage
 inputs, in phases; any failure raises and exits non-zero:
 
   1. device: needs CUDA (raises otherwise), turns TF32 off, prints the
@@ -122,8 +122,8 @@ inputs, in phases; any failure raises and exits non-zero:
      CPU within 1e-4 (disparities and row), (b)'s ops == the decoder's
      own, (c) within the bf16 bounds of (a); per run the row, density,
      GFLOPs per image, seconds, and predict_disps' frames/s and host-feed
-     share, the B=12 forward alone (CUDA events, a profile, and under
-     cudnn.benchmark for comparison). The eval runs the masked-dense
+     share, the B=12 forward alone (CUDA events and a profile). The eval
+     runs the masked-dense
      decoder, as in the JAX package: no kernel of the repo is on it;
  12. nyu: 16 synthetic labeled frames (data/synth.render_scene's view
      resized to 640x480, its true depth x0.25, GT edges from
@@ -208,8 +208,9 @@ inputs, in phases; any failure raises and exits non-zero:
      plain on the path's grids (the hints' and a seeded ResNet18's scale
      0 and 3 disparities, both baselines; forward <= 1e-5, gradients
      <= 1e-4 of their peak); ms per step of the three, the first step's
-     peak memory, a profile of each (idle share, ATen ops, the costliest
-     convs with their cuDNN kernels), K3 per launch at (6, 320, 1024, 3)
+     peak memory, a profile of the two R18 runs (idle share, ATen ops;
+     f32: the costliest convs with their cuDNN kernels), K3 per launch
+     at (6, 320, 1024, 3)
      against plain, F.grid_sample and the bound; card vs host losses of
      a train-mode forward at B=1 within 1e-4 relative;
  16. visuals: tools/train_kitti.main (640x192, B=12, 3 steps, a log step
@@ -228,10 +229,11 @@ inputs, in phases; any failure raises and exits non-zero:
      is printed with the RSS and anonymous-memory peaks and the slope
      after warm-up, not gated;
  18. sparsity: tools/sparsity_sweep.py with random and synthetic weights
-     (300 training steps) for KITTI ResNet18 640x192 B=8 in float32 and
+     (100 training steps) for KITTI ResNet18 640x192 B=8 in float32 and
      bf16, and NYU DenseNet161 480x640 B=4 in bf16 (10 training steps,
-     cut to fit the time), windows of 6 calls: the dense row and thresh -1 at density 1.0
-     with equal GFLOPs, densities falling as the threshold rises; the
+     cut to fit the time), windows of 2 calls: the dense row and thresh
+     -1 at density 1.0 with equal GFLOPs, densities falling as the
+     threshold rises; the
      same sweep at 64x96 on seeded weights (--weights torch) on the card
      and on the host, densities within 1e-3 and GFLOPs within 1e-6
      relative; tools/profile_model.py once (FLOP counter, analytic
@@ -260,8 +262,8 @@ inputs, in phases; any failure raises and exits non-zero:
      16 _disp.npy files, each within 1e-4 of the direct forward on the
      same decoded batch; the feed and ms/img. (d) artifact vs direct
      forward, R18 B=1 and B=16 f32 (tools/bench.measure; reported, not
-     gated). (e) tools/bench_grid.main, all five configs at B=4 (JAX's
-     default 16) and 3 calls per window (9), cut for the time limit, 3
+     gated). (e) tools/bench_grid.main, all five configs at B=2 (JAX's
+     default 16) and 2 calls per window (9), cut for the time limit, 3
      windows: no row may carry an
      _error key, KITTI densities in 0.09-0.11. (f) tools/profile_device.
      main, R18 640x192 B=16 dense and --threshold 0.2: the printed rows
@@ -272,12 +274,36 @@ inputs, in phases; any failure raises and exits non-zero:
      WMD_KITTI_WEIGHTS_R50_1024 on the mount and folders (each [ OK ] or
      a [FAIL] with its reason, printed); tools/fetch_pretrained --check
      on both folders names resnet18 and resnet50.
+ 21. ddp: data-parallel training, two ranks on the one card over gloo
+     (NCCL refuses two ranks on one device), each a process of its own
+     running tools/train_kitti.main (then train_nyu.main) with the
+     multi-host flags of its rank, its steps recorded through wrappers
+     (ddp_rank). KITTI: phase 8's flags (ResNet18 + the wavelet decoder,
+     640x192, stereo + hints, --stereo_warp_kernel on) at the global B=12
+     (6 rows per rank), 3 steps and one validation batch; K3 launches 5
+     forward + 4 backward per rank per step (5 more forward for the
+     validation batch), counted from 0 in each rank just before main.
+     NYU: DenseNet161 + NyuDecoderWave at 640x480, global B=4 (2 per
+     rank), 2 steps, on an 8-frame zip. Against one rank fed the same
+     global batches (the ranks' rows in rank order, the same init, the
+     KITTI wavelet heads' 3x3 scaled by 0.1 in both as in the CPU parity
+     tests, and the same noise generator): each step's losses (and KITTI's validation losses)
+     within 1e-4 relative, step 1's averaged gradients within 1e-4 of
+     each module's gradient norm, the BN running statistics after step 1
+     within 1e-5 of each tensor's norm; the two ranks' parameters after
+     the run bitwise equal. Times: ms per step of each rank and of the
+     one rank (median after the first step), the gradient all-reduce's
+     ms and its share of the step, with the card's name and power limit.
+     Then tools/train_kitti.main --data_axis 2 starts its own two ranks
+     for one step on a 12-line split. A rank that fails or outlasts 300 s
+     fails the phase.
 
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
 summary (K1/K4 with the NYU path's `launches_nyu` and `*_nyu` B=8 sums,
 K3 with the M+S run's `launches_kitti_pose` and the 1024x320 B=6 run's
-`launches_kitti_hr` and `*_kitti_hr` per-launch times) and the last is
+`launches_kitti_hr` and `*_kitti_hr` per-launch times, and one rank's
+`launches_ddp` of phase 21's two-rank run) and the last is
 {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
@@ -295,6 +321,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 H, W = 192, 640
 TOL = 1e-4
 # (H, W, Cin, Cout, epilogue, mask key, conv) of the 12 kernel launches
@@ -362,6 +389,10 @@ def require(ok, what) -> None:
 
 
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also carries "t", the seconds since
+    the script started (where the time limit goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1184,19 +1215,32 @@ def phase_fused_stage(dev, enc, dec, errs):
 
 # --- phase 6: times ----------------------------------------------------------
 
+# the host time a timing window of one variant may take: a slow call
+# (a train step, an FFT-picked conv) gets fewer calls per window than
+# asked, at least one (the script's 1200 s limit)
+WINDOW_MS = 150.0
+
+
 def time_variants(variants: dict, iters: int, windows: int = 3,
                   queue_ahead: bool = False) -> dict:
-    """ms per call of each variant: warm-up, then `windows` windows of
-    `iters` calls timed with CUDA events, interleaved (a, b, b, a, ...).
-    queue_ahead: each window starts behind a ~10 ms device-side sleep, so
-    the host queues all its calls before the card reaches them and the
-    events time the device, not the launch overhead (for kernels of tens
-    of microseconds)."""
+    """ms per call of each variant: two warm-up calls (the second timed on
+    the host), then `windows` windows of up to `iters` calls (as many as
+    fit in WINDOW_MS, at least one) timed with CUDA events, interleaved
+    (a, b, b, a, ...); "calls_per_window" says how many. queue_ahead:
+    each window starts behind a ~10 ms device-side sleep, so the host
+    queues all its calls before the card reaches them and the events time
+    the device, not the launch overhead (for kernels of tens of
+    microseconds)."""
     import torch
-    for fn in variants.values():
-        for _ in range(3):
-            fn()
-    torch.cuda.synchronize()
+    calls = {}
+    for k, fn in variants.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        calls[k] = max(1, min(iters, int(WINDOW_MS / max(call_ms, 1e-3))))
     ms = {k: [] for k in variants}
     order = list(variants)
     for wi in range(windows):
@@ -1206,13 +1250,14 @@ def time_variants(variants: dict, iters: int, windows: int = 3,
             if queue_ahead:
                 torch.cuda._sleep(20_000_000)
             start.record()
-            for _ in range(iters):
+            for _ in range(calls[k]):
                 variants[k]()
             end.record()
             end.synchronize()
-            ms[k].append(start.elapsed_time(end) / iters)
+            ms[k].append(start.elapsed_time(end) / calls[k])
     return {k: {"ms_median": statistics.median(v), "ms_min": min(v),
-                "ms_max": max(v)} for k, v in ms.items()}
+                "ms_max": max(v), "calls_per_window": calls[k]}
+            for k, v in ms.items()}
 
 
 def conv_bound_ms(m, cin: int, cout: int):
@@ -1481,6 +1526,7 @@ def phase_fused_times(dec, inputs):
 # --- phase 6b: the bench twin ----------------------------------------------
 
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+BENCH_ITERS = 5        # calls per window (the CLI's 10; the time limit)
 
 
 def phase_bench(dev) -> None:
@@ -1494,7 +1540,7 @@ def phase_bench(dev) -> None:
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        result = bench.main([], device=dev)
+        result = bench.main(["--iters", str(BENCH_ITERS)], device=dev)
     lines = buf.getvalue().strip().splitlines()
     require(len(lines) == 1 and json.loads(lines[0])
             == json.loads(json.dumps(result)), ("bench output", lines))
@@ -2105,15 +2151,17 @@ def time_backward(out, inputs, g):
     return lambda: torch.autograd.grad(out, inputs, g, retain_graph=True)
 
 
-def trace_calls(fn, calls: int):
+def trace_calls(fn, calls: int, shapes: bool = False):
     """fn() `calls` times in one torch.profiler trace (its own overhead
-    lengthens the wall): (device spans sorted, {kernel: [launches, us]},
-    {innermost ATen op: [us, kernels]}, busy us, wall ms)."""
+    lengthens the wall; shapes: input shapes recorded too, for
+    costliest_convs / conv_breakdown of the same trace, which lengthens it
+    more): (device spans sorted, {kernel: [launches, us]}, {innermost ATen
+    op: [us, kernels]}, busy us, wall ms, the profile)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -2141,14 +2189,14 @@ def trace_calls(fn, calls: int):
             cur_e = max(cur_e, e)
     if cur_e is not None:
         busy += cur_e - cur_s
-    return spans, by_kernel, by_op, busy, wall_ms
+    return spans, by_kernel, by_op, busy, wall_ms, prof
 
 
 def profile_forwards(enc, dec, dev, encb, decb) -> None:
     """Device busy time, idle share, costliest kernels and ATen ops per
     B=16 forward of each compacted backend (10% maskgen masks,
     compact_cap 0.5) and of the bench's dense and sparse (xla) cells in
-    float32 and bf16 (encb, decb: the bf16 cast), 3 forwards in one trace
+    float32 and bf16 (encb, decb: the bf16 cast), one forward in a trace
     each."""
     import torch
     from wavelet_monodepth_tpu_torch.utils import maskgen as mg
@@ -2169,29 +2217,29 @@ def profile_forwards(enc, dec, dev, encb, decb) -> None:
                     d(e(x), thresh_ratio=ratio, mask_override=raw,
                       use_pallas=use)
         fwd()
-        spans, by_kernel, by_op, busy, wall_ms = trace_calls(fwd, 3)
+        spans, by_kernel, by_op, busy, wall_ms, _ = trace_calls(fwd, 1)
         top_k = sorted(((v[1], n[:100], v[0]) for n, v in by_kernel.items()),
                        reverse=True)[:10]
         top_op = sorted(((v[0], n, v[1]) for n, v in by_op.items()),
                         reverse=True)[:10]
         # no device spans means the tracer saw nothing: "not measured"
         emit({"phase": "profile_forward", "backend": backend, "batch": 16,
-              "forwards": 3, "kernels_per_forward": len(spans) / 3,
-              "device_busy_ms_per_forward": busy / 3e3 if spans else None,
-              "wall_ms_per_forward": wall_ms / 3,
+              "forwards": 1, "kernels_per_forward": len(spans),
+              "device_busy_ms_per_forward": busy / 1e3 if spans else None,
+              "wall_ms_per_forward": wall_ms,
               "idle_share_of_wall":
                   1.0 - busy / 1e3 / wall_ms if spans else None,
-              "top_kernels_ms_per_forward": [[k, v / 3e3, c / 3]
+              "top_kernels_ms_per_forward": [[k, v / 1e3, c]
                                              for v, k, c in top_k],
-              "top_ops_ms_per_forward": [[k, v / 3e3, c / 3]
+              "top_ops_ms_per_forward": [[k, v / 1e3, c]
                                          for v, k, c in top_op], **_card})
 
 
 def profile_step(setup, state, noise, batch, kern: str) -> None:
-    """Device busy time, idle share and kernels of 3 train steps in one
+    """Device busy time, idle share and kernels of one train step in a
     torch.profiler trace (the trace's own overhead lengthens the wall)."""
-    spans, by_kernel, _, busy, wall_ms = trace_calls(
-        lambda: setup.train_step(state, batch, noise), 3)
+    spans, by_kernel, _, busy, wall_ms, _ = trace_calls(
+        lambda: setup.train_step(state, batch, noise), 1)
     top = sorted(((v[1], name[:120], v[0]) for name, v in by_kernel.items()),
                  reverse=True)[:12]
     warp_kernels = {name[:120]: {"launches": v[0],
@@ -2199,16 +2247,15 @@ def profile_step(setup, state, noise, batch, kern: str) -> None:
                     for name, v in by_kernel.items()
                     if "banded_warp" in name or "grid_sampler" in name}
     # no device spans means the tracer saw nothing: "not measured" (null)
-    emit({"phase": "profile_train_step", "steps": 3,
+    emit({"phase": "profile_train_step", "steps": 1,
           "stereo_warp_kernel": kern, "kernels": len(spans),
-          "device_busy_ms_per_step": busy / 3e3 if spans else None,
+          "device_busy_ms_per_step": busy / 1e3 if spans else None,
           "kernel_window_ms_per_step":
-              (spans[-1][1] - spans[0][0]) / 3e3 if spans else None,
-          "wall_ms_per_step": wall_ms / 3,
+              (spans[-1][1] - spans[0][0]) / 1e3 if spans else None,
+          "wall_ms_per_step": wall_ms,
           "idle_share_of_wall":
               1.0 - busy / 1e3 / wall_ms if spans else None,
-          "top_kernels_ms_per_step": [[k, v / 3e3, c // 3]
-                                      for v, k, c in top],
+          "top_kernels_ms_per_step": [[k, v / 1e3, c] for v, k, c in top],
           "warp_kernels": warp_kernels, **_card})
 
 
@@ -2412,13 +2459,13 @@ def eval_argv(root, dev, depth, size):
 
 
 def time_predict(argv, weights, dev, sparse: bool, profiled: bool) -> dict:
-    """frames/s of kitti_eval.predict_disps over the test split (the
-    second of two passes) and the share of its wall time spent in the
-    host feed (JPEG decode, Lanczos resize, batching: the time the
-    batches' generator takes to yield); the forward alone at B=12 on the
-    card, CUDA events (median of 3 windows of 2). profiled: also one
-    profiled call (kernels, device busy time, costliest kernels, ATen ops
-    and convs with their shapes) and the forward under cudnn.benchmark."""
+    """frames/s of kitti_eval.predict_disps over the test split (one
+    pass, after main's own pass over it) and the share of its wall time
+    spent in the host feed (JPEG decode, Lanczos resize, batching: the
+    time the batches' generator takes to yield); the forward alone at
+    B=12 on the card, CUDA events (median of 3 windows of up to 2).
+    profiled: also one profiled call (kernels, device busy time, costliest
+    kernels, ATen ops and convs with their shapes)."""
     t_start = time.perf_counter()
     import torch
     from wavelet_monodepth_tpu_torch.data.splits import readlines, \
@@ -2434,24 +2481,23 @@ def time_predict(argv, weights, dev, sparse: bool, profiled: bool) -> dict:
     forward = ed.load_forward(opts, dev, weights)
     ds = ed.eval_dataset(opts, files)
     thresh = opts.threshold if sparse else None
-    for _ in range(2):
-        feed = [0.0]
+    feed = [0.0]
 
-        def batches():
-            it = ed.eval_batches(opts, ds)
-            while True:
-                t0 = time.perf_counter()
-                b = next(it, None)
-                feed[0] += time.perf_counter() - t0
-                if b is None:
-                    return
-                yield b
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        disps, _ = kitti_eval.predict_disps(
-            forward, batches(), device=dev, post_process=opts.post_process,
-            sparse_threshold=thresh)
-        wall = time.perf_counter() - t0
+    def batches():
+        it = ed.eval_batches(opts, ds)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            feed[0] += time.perf_counter() - t0
+            if b is None:
+                return
+            yield b
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    disps, _ = kitti_eval.predict_disps(
+        forward, batches(), device=dev, post_process=opts.post_process,
+        sparse_threshold=thresh)
+    wall = time.perf_counter() - t0
     x = torch.from_numpy(next(ed.eval_batches(opts, ds))).to(dev)
     fwd = time_variants({"forward": lambda: forward(x, thresh)}, iters=2)
     out = {"frames": int(disps.shape[0]),
@@ -2459,8 +2505,8 @@ def time_predict(argv, weights, dev, sparse: bool, profiled: bool) -> dict:
            "host_feed_share": feed[0] / wall, "forward_batch": x.shape[0],
            "forward_ms": fwd["forward"]}
     if profiled:
-        _, by_kernel, by_op, busy, wall_ms = trace_calls(
-            lambda: forward(x, thresh), 1)
+        _, by_kernel, by_op, busy, wall_ms, prof = trace_calls(
+            lambda: forward(x, thresh), 1, shapes=True)
         out["forward_profile"] = {
             "kernels": sum(v[0] for v in by_kernel.values()),
             "device_busy_ms": busy / 1e3, "wall_ms": wall_ms,
@@ -2468,29 +2514,15 @@ def time_predict(argv, weights, dev, sparse: bool, profiled: bool) -> dict:
                 by_kernel.items(), key=lambda kv: -kv[1][1])[:3]},
             "top_ops_us": {k: v[0] for k, v in sorted(
                 by_op.items(), key=lambda kv: -kv[1][0])[:3]}}
-        out["costliest_convs"] = costliest_convs(lambda: forward(x, thresh))
-        # cuDNN's own algorithm search, for comparison only (the CLI
-        # keeps cuDNN's heuristic choice)
-        torch.backends.cudnn.benchmark = True
-        try:
-            out["forward_ms_cudnn_benchmark"] = time_variants(
-                {"forward": lambda: forward(x, thresh)}, iters=2)["forward"]
-        finally:
-            torch.backends.cudnn.benchmark = False
+        out["costliest_convs"] = costliest_convs(prof)
     out["time_predict_seconds"] = time.perf_counter() - t_start
     return out
 
 
-def costliest_convs(fn, top: int = 3) -> list:
-    """The `top` cuDNN convolutions of one fn() by device time, with their
-    input shapes (one torch.profiler trace with shapes recorded)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        fn()
-        torch.cuda.synchronize()
+def costliest_convs(prof, top: int = 3) -> list:
+    """The `top` cuDNN convolutions of a trace with shapes recorded
+    (trace_calls(..., shapes=True)) by device time, with their input
+    shapes."""
     rows = [e for e in prof.key_averages(group_by_input_shape=True)
             if e.key == "aten::cudnn_convolution"]
     rows.sort(key=lambda e: -e.device_time_total)
@@ -3064,8 +3096,9 @@ def nyu_profile(fn, label: str) -> None:
     with their shapes."""
     import torch
     with torch.inference_mode():
-        _, by_kernel, by_op, busy, wall_ms = trace_calls(fn, 1)
-        convs = costliest_convs(fn, 5)
+        _, by_kernel, by_op, busy, wall_ms, prof = trace_calls(
+            fn, 1, shapes=True)
+        convs = costliest_convs(prof, 5)
     emit({"phase": "nyu_profile_forward", "forward": label,
           "kernels": sum(v[0] for v in by_kernel.values()),
           "device_busy_ms": busy / 1e3, "wall_ms": wall_ms,
@@ -3328,19 +3361,12 @@ def nyu_twin_contract(dev, bf16: bool, steps: int = 30) -> dict:
 UP3_CONVA_INPUT = [NYU_TRAIN_B, 372, NYU_H // 4 + 2, NYU_W // 4 + 2]
 
 
-def conv_breakdown(fn, top: int = 6) -> list:
-    """The `top` convolutions of one fn() by device time, forward
+def conv_breakdown(prof, top: int = 6) -> list:
+    """The `top` convolutions of a trace with shapes recorded
+    (trace_calls(..., shapes=True)) by device time, forward
     (aten::cudnn_convolution) and backward (aten::convolution_backward),
     and up3.convA's forward and backward whatever their rank, with their
-    input shapes and their costliest kernels (one torch.profiler trace
-    with shapes recorded)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        fn()
-        torch.cuda.synchronize()
+    input shapes and their costliest kernels."""
     rows = {}
     for e in prof.events():
         if e.name not in ("aten::cudnn_convolution",
@@ -3452,7 +3478,8 @@ def phase_nyu_train(dev, tmp: str) -> str:
           "batch": NYU_TRAIN_B, "res": [NYU_H, NYU_W], "tf32": False,
           "peak_memory_gib_first_step": peak, **t, **_card})
     for name, fn in steps.items():
-        _, by_kernel, by_op, busy, wall_ms = trace_calls(fn, 1)
+        _, by_kernel, by_op, busy, wall_ms, prof = trace_calls(
+            fn, 1, shapes=True)
         emit({"phase": "nyu_train", "run": "profile_train_step",
               "dtype": name, "kernels": sum(v[0] for v in by_kernel.values()),
               "device_busy_ms": busy / 1e3, "wall_ms": wall_ms,
@@ -3461,7 +3488,7 @@ def phase_nyu_train(dev, tmp: str) -> str:
                   ((k, v) for k, v in by_op.items()
                    if k.startswith("aten::")),
                   key=lambda kv: -kv[1][0])[:8]},
-              "costliest_convs": conv_breakdown(fn), **_card})
+              "costliest_convs": conv_breakdown(prof), **_card})
     del runs, steps
     torch.cuda.empty_cache()
     emit({"phase": "nyu_train_done",
@@ -3686,14 +3713,14 @@ def phase_kitti_pose(dev, root: str, tmp: str, stereo_launches: dict):
     t = time_variants(steps, iters=2)
     idle = {}
     for name, fn in steps.items():
-        spans, _, by_op, busy, wall_ms = trace_calls(fn, 2)
+        spans, _, by_op, busy, wall_ms, _ = trace_calls(fn, 1)
         top = sorted(((v[0], k) for k, v in by_op.items()
                       if k.startswith("aten::")), reverse=True)[:8]
-        idle[name] = {"device_busy_ms_per_step": busy / 2e3 if spans
-                      else None, "wall_ms_per_step": wall_ms / 2,
+        idle[name] = {"device_busy_ms_per_step": busy / 1e3 if spans
+                      else None, "wall_ms_per_step": wall_ms,
                       "idle_share": 1.0 - busy / 1e3 / wall_ms if spans
-                      else None, "kernels_per_step": len(spans) / 2,
-                      "top_aten_ops_ms_per_step": [[k, v / 2e3]
+                      else None, "kernels_per_step": len(spans),
+                      "top_aten_ops_ms_per_step": [[k, v / 1e3]
                                                    for v, k in top]}
     bf16_dtypes = pose_state_dtypes(runs["bf16"][1])
     note({"phase": "kitti_pose", "check": "ms_time_train_step",
@@ -3995,17 +4022,18 @@ def phase_kitti_hr_train(dev, root: str, tmp: str, errs: dict) -> dict:
           "peak_memory_gib_first_step": peak,
           "peak_memory_note": "earlier variants' states stay resident",
           **t, **_card})
-    for name, fn in steps.items():
-        spans, _, by_op, busy, wall_ms = trace_calls(fn, 2)
+    for name in ("r18_f32", "r18_bf16"):
+        spans, _, by_op, busy, wall_ms, prof = trace_calls(
+            steps[name], 1, shapes=name == "r18_f32")
         top = sorted(((v[0], k) for k, v in by_op.items()
                       if k.startswith("aten::")), reverse=True)[:8]
         emit({"phase": "kitti_hr_train", "check": "profile_train_step",
-              "run": name, "kernels_per_step": len(spans) / 2,
-              "device_busy_ms_per_step": busy / 2e3 if spans else None,
-              "wall_ms_per_step": wall_ms / 2,
+              "run": name, "kernels_per_step": len(spans),
+              "device_busy_ms_per_step": busy / 1e3 if spans else None,
+              "wall_ms_per_step": wall_ms,
               "idle_share": 1.0 - busy / 1e3 / wall_ms if spans else None,
-              "top_aten_ops_ms_per_step": [[k, v / 2e3] for v, k in top],
-              "costliest_convs": conv_breakdown(fn) if name == "r18_f32"
+              "top_aten_ops_ms_per_step": [[k, v / 1e3] for v, k in top],
+              "costliest_convs": conv_breakdown(prof) if name == "r18_f32"
               else None, **_card})
     del runs, steps
     torch.cuda.empty_cache()
@@ -4224,6 +4252,7 @@ def phase_soak(dev, root: str, tmp: str) -> None:
 # --- phase 18: the sparsity curve ---------------------------------------------
 
 SWEEP_NYU_TRAIN_STEPS = 10          # cut from 300 to fit the time limit
+SWEEP_KITTI_TRAIN_STEPS = 100       # cut from 300 to fit the time limit
 
 
 def run_sweep(argv, dev) -> dict:
@@ -4257,14 +4286,15 @@ def phase_sparsity(dev, tmp: str) -> None:
     from wavelet_monodepth_tpu_torch.tools import profile_model
     from wavelet_monodepth_tpu_torch.tools import torch_import as ti
     t_phase = time.perf_counter()
-    cells = (("kitti_r18_f32", ["--batch", "8"]),
-             ("kitti_r18_bf16", ["--batch", "8", "--bfloat16"]),
+    kitti = ["--batch", "8", "--train_steps", str(SWEEP_KITTI_TRAIN_STEPS)]
+    cells = (("kitti_r18_f32", kitti),
+             ("kitti_r18_bf16", kitti + ["--bfloat16"]),
              ("nyu_densenet161_bf16",
               ["--dataset", "nyu", "--batch", "4", "--bfloat16",
                "--train_steps", str(SWEEP_NYU_TRAIN_STEPS)]))
     for name, extra in cells:
-        res = run_sweep(["--weights", "random", "synthetic", "--k", "2",
-                         "6", "--out", os.path.join(tmp, "sweep",
+        res = run_sweep(["--weights", "random", "synthetic", "--k", "1",
+                         "2", "--out", os.path.join(tmp, "sweep",
                                                     f"{name}.json")]
                         + extra, dev)
         emit({"phase": "sparsity", "cell": name, "meta": res["meta"],
@@ -4380,8 +4410,8 @@ def phase_native(dev, eval_root: str, folder18: str) -> None:
 # --- phase 20: the serving artifact and the measurement tools ----------------
 
 SERVE_BATCH = 16
-GRID_BATCH = 4           # JAX's grid runs B=16; cut for the time limit
-GRID_CALLS = 3           # calls per window (the CLI's --k1 default 9)
+GRID_BATCH = 2           # JAX's grid runs B=16; cut for the time limit
+GRID_CALLS = 2           # calls per window (the CLI's --k1 default 9)
 GRID_DENSITY = (0.09, 0.11)
 
 
@@ -4587,7 +4617,7 @@ def phase_serving_tools(dev, eval_root: str, folder18: str, folder50: str,
         event_ms = time_variants({"forward": fwd}, iters=8)["forward"]
         # the same forward in a plain trace (no ranges): the union of its
         # device spans, the busy time the rows should add up to
-        _, by_kernel, _, busy, _ = trace_calls(fwd, 8)
+        _, by_kernel, _, busy, _, _ = trace_calls(fwd, 8)
         total = prof["total_ms"]
         groups = dict(prof["groups"])
         line = {"phase": "profile_device", "threshold": thresh,
@@ -4647,6 +4677,509 @@ def phase_serving_tools(dev, eval_root: str, folder18: str, folder50: str,
     emit({"phase": "serving_tools_done", "kernel_launches": moved,
           "seconds": time.perf_counter() - t_phase})
     require(moved == 0, ("serving tools launched a kernel", moved))
+
+
+# --- phase 21: ddp ----------------------------------------------------------
+
+DDP_RANKS = 2
+DDP_NYU_FRAMES = 8            # 2 steps at the global B=4
+DDP_NYU_B = 4
+DDP_TIMEOUT = 300             # seconds for a two-rank launch
+DDP_LOSS_TOL = 1e-4           # relative, each step's losses
+DDP_STATS_TOL = 1e-5          # relative norm, each BN statistic
+DDP_GRAD_LIMIT = 1e-4         # the direct gradient gap's target, printed
+
+
+def ddp_nyu_argv(zip_path: str, log: str):
+    """train_nyu's flags at the global B=4: DenseNet161 + NyuDecoderWave
+    at 640x480, one epoch, a validation batch at the first step."""
+    return ["--data_path", zip_path, "--log_dir", log, "--encoder_type",
+            "densenet", "--use_wavelets", "--batch_size", str(DDP_NYU_B),
+            "--epochs", "1", "--log_frequency", "300", "--num_workers", "2",
+            "--no-pretrained_encoder"]
+
+
+def _to_cpu(obj):
+    """A copy of `obj` with every tensor on the CPU (nested dicts, lists)."""
+    import torch
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def _named_params(state) -> dict:
+    return {f"{prefix}.{n}": p for prefix, m in state.modules().items()
+            for n, p in m.named_parameters()}
+
+
+def _bn_stats(state) -> dict:
+    return {f"{prefix}.{k}": v for prefix, m in state.modules().items()
+            for k, v in m.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def _snapshot(state, gen) -> dict:
+    """What a step starts from: every network's state dict, Adam's, the
+    step count and the noise generator's state."""
+    return {"modules": {n: _to_cpu(m.state_dict())
+                        for n, m in state.modules().items()},
+            "adam": _to_cpu(state.optimizer.state_dict()),
+            "step": state.step,
+            "gen": None if gen is None else gen.get_state()}
+
+
+def _restore(state, snap: dict, gen) -> None:
+    for n, m in state.modules().items():
+        m.load_state_dict(snap["modules"][n])
+    state.optimizer.load_state_dict(snap["adam"])
+    state.step = snap["step"]
+    if gen is not None:
+        gen.set_state(snap["gen"])
+
+
+def ddp_condition(state) -> None:
+    """The wavelet heads' 3x3 convs scaled by 0.1 (KITTI), as the CPU
+    parity tests do: no random-init disparity sits at the clamp at 0,
+    where depth = 1 / (0.01 + 9.99 disp) turns float32 rounding into
+    1e5-fold larger gradients. Applied in the ranks' init."""
+    import torch
+    blocks = getattr(state.decoder, "blocks", {})
+    with torch.no_grad():
+        for name, block in blocks.items():
+            if "_pos" in name or "_neg" in name:
+                block[2].conv.weight.mul_(0.1)
+                block[2].conv.bias.mul_(0.1)
+
+
+def ddp_rank(rank: int, world: int, port: int, family: str, argv: list,
+             out: str) -> None:
+    """One rank of the ddp phase (a process of its own): tools/
+    train_kitti.main or train_nyu.main with the multi-host flags of this
+    rank, recording through wrappers of the setup's steps what it fed,
+    logged and held: each step's local batch, losses and time
+    (synchronised around the step), rank 0's state before each step,
+    step 1's averaged gradients, the validation batches with the noise
+    generator's state there, the gradient all-reduce's time, the
+    parameters and BN statistics after the run and K3's launches
+    (counted from 0 just before main), and the wall clock at its marks
+    (entered, imported, each step's start, main returned)."""
+    clock = {"entered": time.time()}
+    import torch
+    sys.path.insert(0, REPO)
+    from wavelet_monodepth_tpu_torch.ops import warp
+    from wavelet_monodepth_tpu_torch.parallel import mesh
+    if family == "kitti":
+        from wavelet_monodepth_tpu_torch.tools import train_kitti as tool
+        from wavelet_monodepth_tpu_torch.train.kitti import \
+            KittiTrainSetup as Setup
+    else:
+        from wavelet_monodepth_tpu_torch.tools import train_nyu as tool
+        from wavelet_monodepth_tpu_torch.train.nyu import \
+            NyuTrainSetup as Setup
+    rec = {"steps": [], "vals": [], "allreduce_ms": [], "clock": clock}
+    clock["imported"] = time.time()
+    held = {}
+    train_step, eval_step = Setup.train_step, Setup.eval_step
+    init_state = Setup.init_state
+    allreduce = mesh.allreduce_gradients
+
+    def split(inputs):
+        gens = [x for x in inputs if isinstance(x, torch.Generator)]
+        return ([_to_cpu(x) for x in inputs
+                 if not isinstance(x, torch.Generator)],
+                gens[0] if gens else None)
+
+    def sync_ms(t0):
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def conditioned_init(self, *args, **kw):
+        state = init_state(self, *args, **kw)
+        ddp_condition(state)
+        return state
+
+    def timed_allreduce(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        allreduce(params)
+        rec["allreduce_ms"].append(sync_ms(t0))
+
+    def recorded_train_step(self, state, *inputs):
+        clock.setdefault("steps", []).append(time.time())
+        fed, gen = split(inputs)
+        before = _snapshot(state, gen) if rank == 0 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = train_step(self, state, *inputs)
+        ms = sync_ms(t0)
+        rec["steps"].append({"inputs": fed, "before": before, "ms": ms,
+                             "losses": {k: float(v)
+                                        for k, v in losses.items()}})
+        if len(rec["steps"]) == 1:
+            rec["backend"] = torch.distributed.get_backend()
+            rec["grads"] = _to_cpu({k: p.grad for k, p in
+                                    _named_params(state).items()
+                                    if p.grad is not None})
+        held["state"] = state
+        return losses
+
+    def recorded_eval_step(self, state, *inputs):
+        fed, gen = split(inputs)
+        rec["vals"].append({"inputs": fed, "gen": None if gen is None
+                            else gen.get_state()})
+        return eval_step(self, state, *inputs)
+
+    Setup.train_step, Setup.eval_step = recorded_train_step, \
+        recorded_eval_step
+    Setup.init_state = conditioned_init
+    mesh.allreduce_gradients = timed_allreduce
+    warp.reset_launches()
+    summary = tool.main(argv + [
+        "--coordinator_address", f"127.0.0.1:{port}", "--num_processes",
+        str(world), "--process_id", str(rank), "--device", "cuda"],
+        logger=no_writer())
+    clock["main_returned"] = time.time()
+    rec["launches"] = dict(warp.launches)
+    rec["summary"] = summary
+    rec["params"] = _to_cpu(_named_params(held["state"]))
+    rec["stats"] = _to_cpu(_bn_stats(held["state"]))
+    torch.save(rec, out)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ddp_ranks(family: str, argv: list, tmp: str) -> list:
+    """DDP_RANKS processes of ddp_rank on the one card (gloo: the ranks
+    share it), each with its own log; a rank that fails or outlasts
+    DDP_TIMEOUT fails the phase (the others are killed), and every failed
+    rank's log ends the message. Returns the ranks' records and the
+    launch's wall seconds."""
+    import torch
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    started = time.time()
+    try:
+        for r in range(DDP_RANKS):
+            out = os.path.join(tmp, f"{family}_rank{r}.pt")
+            code = (f"import sys; sys.path.insert(0, {REPO!r}); "
+                    f"import chip_smoke; chip_smoke.ddp_rank({r}, "
+                    f"{DDP_RANKS}, {port}, {family!r}, {argv!r}, {out!r})")
+            logs.append(open(os.path.join(tmp, f"{family}_rank{r}.log"),
+                             "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code], cwd=REPO, stdout=logs[-1],
+                stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL))
+        deadline = time.time() + DDP_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    failed = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            failed.append(f"rank {r} exited with {p.returncode}:\n"
+                          f"{text[-2500:]}")
+    require(not failed, f"ddp {family}: " + "\n".join(failed))
+    recs = [torch.load(os.path.join(tmp, f"{family}_rank{r}.pt"),
+                       weights_only=False) for r in range(DDP_RANKS)]
+    for rec in recs:    # seconds from the launch to each mark
+        c = rec["clock"]
+        rec["timeline_s"] = {
+            k: ([t - started for t in c[k]] if isinstance(c[k], list)
+                else c[k] - started) for k in c}
+    return recs, seconds
+
+
+def _global_inputs(parts: list, dev) -> list:
+    """The global batch of one recorded call: the ranks' rows in rank
+    order."""
+    import torch
+    out = []
+    for i, first in enumerate(parts[0]):
+        if isinstance(first, dict):
+            out.append({k: torch.cat([p[i][k] for p in parts]).to(dev)
+                        for k in first})
+        else:
+            out.append(torch.cat([p[i] for p in parts]).to(dev))
+    return out
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm()
+                 / max(float(b.double().norm()), 1e-30))
+
+
+def _stats_gap(a, b) -> float:
+    """A BN statistic's gap relative to its norm, or to 1e-3 per element
+    where it is near 0 (the running mean of a zero-mean activation)."""
+    return float((a.double() - b.double()).norm()
+                 / max(float(b.double().norm()), 1e-3 * b.numel() ** 0.5))
+
+
+def _loss_gap(ours: dict, ref: dict) -> float:
+    require(set(ours) == set(ref), (sorted(ours), sorted(ref)))
+    return max(abs(ours[k] - ref[k]) / max(abs(ref[k]), 1e-30)
+               for k in ref)
+
+
+def _ddp_setup(family: str, argv: list, dev, steps: int):
+    """The setup of `argv` on one rank and its noise generator (KITTI)."""
+    import torch
+    from wavelet_monodepth_tpu_torch.utils import config
+    if family == "kitti":
+        from wavelet_monodepth_tpu_torch.train.kitti import KittiTrainSetup
+        setup = KittiTrainSetup(config.parse_kitti_args(argv), device=dev,
+                                steps_per_epoch=steps)
+        return setup, torch.Generator(device=dev)
+    from wavelet_monodepth_tpu_torch.train.nyu import NyuTrainSetup
+    return NyuTrainSetup(config.parse_nyu_args(argv), device=dev), None
+
+
+def _reversed(inputs: list, gen, scales, dev) -> list:
+    """A global batch with its rows reversed, and (KITTI) the automask
+    draws the step would take from `gen`'s state, reversed with them."""
+    import torch
+    out = [{k: v.flip(0) for k, v in x.items()} if isinstance(x, dict)
+           else x.flip(0) for x in inputs]
+    if gen is not None:
+        shape = out[0][("color_u8", "0", 0)].shape[:3] + (1,)
+        out.append({s: torch.randn(shape, generator=gen, device=dev).flip(0)
+                    for s in scales})
+    return out
+
+
+def ddp_reference(family: str, argv: list, recs: list, dev) -> dict:
+    """One rank on the global batch, step by step: before each step the
+    state rank 0 started it from (the networks, Adam, the noise
+    generator), then the step on the ranks' rows concatenated in rank
+    order; KITTI's validation batch from the state main ran it in, with
+    the noise generator's state there. Each step is compared from the
+    same state, so float32 differences of one step do not carry into the
+    next. Each step and the validation batch also run on the global
+    batch's rows reversed (the noise rows with them): the same function,
+    its float32 sums in another order, which measures how far float32
+    rounding alone moves them (the `*_reversed` entries)."""
+    import torch
+    steps = recs[0]["steps"]
+    setup, gen = _ddp_setup(family, argv, dev, len(steps))
+    scales = getattr(setup.opts, "loss_scales", ())
+    state = setup.init_state(torch.Generator().manual_seed(0))
+    extra = [gen] if gen is not None else []
+    ref = {"losses": [], "losses_reversed": [], "stats": [], "ms": [],
+           "val_losses": [], "val_losses_reversed": []}
+
+    def host(losses):
+        return {k: float(v) for k, v in losses.items()}
+
+    def grads():
+        return _to_cpu({k: p.grad for k, p in _named_params(state).items()
+                        if p.grad is not None})
+
+    for i, step in enumerate(steps):
+        inputs = _global_inputs([r["steps"][i]["inputs"] for r in recs], dev)
+        _restore(state, step["before"], gen)
+        ref["losses_reversed"].append(host(setup.train_step(
+            state, *_reversed(inputs, gen, scales, dev))))
+        if i == 0:
+            ref["grads_reversed"] = grads()
+        _restore(state, step["before"], gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = setup.train_step(state, *inputs, *extra)
+        torch.cuda.synchronize()
+        ref["ms"].append((time.perf_counter() - t0) * 1e3)
+        ref["losses"].append(host(losses))
+        ref["stats"].append(_to_cpu(_bn_stats(state)))
+        if i == 0:
+            ref["grads"] = grads()
+    if family == "kitti":
+        # main validated after step 1, from the state step 2 started from
+        vin = _global_inputs([r["vals"][0]["inputs"] for r in recs], dev)
+        for key in ("val_losses", "val_losses_reversed"):
+            _restore(state, steps[1]["before"], gen)
+            gen.set_state(recs[0]["vals"][0]["gen"])
+            batch = (vin + extra if key == "val_losses"
+                     else _reversed(vin, gen, scales, dev))
+            ref[key].append(host(setup.eval_step(state, *batch)[1]))
+    return ref
+
+
+def _grad_groups(grads: dict) -> dict:
+    import torch
+    out = {}
+    for k, v in grads.items():
+        out.setdefault(k.split(".")[0], []).append(v.double().reshape(-1))
+    return {m: torch.cat(v) for m, v in out.items()}
+
+
+def ddp_compare(family: str, recs: list, ref: dict, seconds: float) -> dict:
+    """The checks of the ddp phase, and its line."""
+    import statistics as st
+    import torch
+    steps = len(ref["losses"])
+    for r, rec in enumerate(recs):
+        require(len(rec["steps"]) == steps, (family, r, len(rec["steps"])))
+        require(rec["backend"] == "gloo", (family, r, rec["backend"]))
+    # the ranks log the same global losses and end with equal state
+    for rec in recs[1:]:
+        require([s["losses"] for s in rec["steps"]]
+                == [s["losses"] for s in recs[0]["steps"]],
+                (family, "ranks' losses differ"))
+        for key in ("params", "stats"):
+            require(set(rec[key]) == set(recs[0][key]), (family, key))
+            differ = [k for k in rec[key]
+                      if not torch.equal(rec[key][k], recs[0][key][k])]
+            require(not differ, (family, f"ranks' {key} differ", differ[:3]))
+    loss_gaps = [_loss_gap(recs[0]["steps"][i]["losses"], ref["losses"][i])
+                 for i in range(steps)]
+    loss_floors = [_loss_gap(ref["losses_reversed"][i], ref["losses"][i])
+                   for i in range(steps)]
+    val_gap = val_floor = None
+    if ref["val_losses"]:
+        val_gap = _loss_gap(recs[0]["summary"]["val_losses"][0],
+                            ref["val_losses"][0])
+        val_floor = _loss_gap(ref["val_losses_reversed"][0],
+                              ref["val_losses"][0])
+    # the ranks' statistics after step i: what step i + 1 started from
+    after = [recs[0]["steps"][i + 1]["before"]["modules"]
+             for i in range(steps - 1)]
+    stats_gaps = []
+    for i in range(steps):
+        ours = (recs[0]["stats"] if i == steps - 1 else
+                {f"{m}.{k}": v for m, sd in after[i].items()
+                 for k, v in sd.items()
+                 if k.endswith(("running_mean", "running_var"))})
+        require(set(ours) == set(ref["stats"][i]), (family, "BN names"))
+        stats_gaps.append(max(_stats_gap(ours[k], ref["stats"][i][k])
+                              for k in ours))
+    g2, g1, g0 = (_grad_groups(g) for g in (
+        recs[0]["grads"], ref["grads"], ref["grads_reversed"]))
+    require(set(g2) == set(g1) == set(g0), (family, "gradient modules"))
+    grads = {m: {"two_vs_one": _rel(g2[m], g1[m]),
+                 "one_vs_reversed_rows": _rel(g0[m], g1[m])}
+             for m in sorted(g0)}
+    rank_ms = [st.median([s["ms"] for s in rec["steps"][1:]])
+               for rec in recs]
+    allreduce_ms = [st.median(rec["allreduce_ms"][1:]) for rec in recs]
+    line = {"phase": "ddp", "family": family, "ranks": len(recs),
+            "backend": "gloo", "steps": steps, "loss_gaps": loss_gaps,
+            "loss_tol": DDP_LOSS_TOL, "loss_floors_reversed_rows":
+            loss_floors, "val_loss_gap": val_gap,
+            "val_loss_floor_reversed_rows": val_floor,
+            "bn_stats_gaps": stats_gaps, "bn_stats_tol": DDP_STATS_TOL,
+            "grad_gaps": grads, "grad_two_vs_one_limit": DDP_GRAD_LIMIT,
+            "params_and_stats_bitwise_equal": True,
+            "ms_per_step_two_ranks": rank_ms,
+            "ms_per_step_one_rank": st.median(ref["ms"][1:]),
+            "ms_steps_one_rank": ref["ms"],
+            "allreduce_ms": allreduce_ms,
+            "allreduce_share": [a / s for a, s in zip(allreduce_ms, rank_ms)],
+            "launch_seconds": seconds,
+            "rank_timelines_s": [rec["timeline_s"] for rec in recs], **_card}
+    emit(line)
+    # the hint term's argmin flips where two warps nearly tie, so float32
+    # rounding alone moves a step's losses by up to ~1e-4 (the reversed
+    # rows show how far in this step): the limit, plus 3x that floor
+    for gap, floor in zip(loss_gaps, loss_floors):
+        require(gap <= DDP_LOSS_TOL + 3 * floor,
+                (family, "losses", loss_gaps, loss_floors))
+    require(val_gap is None or val_gap <= DDP_LOSS_TOL + 3 * val_floor,
+            (family, "validation losses", val_gap, val_floor))
+    require(max(stats_gaps) <= DDP_STATS_TOL,
+            (family, "BN statistics", stats_gaps))
+    # float32 rounding alone moves these gradients by ~1% (BN's backward
+    # over a one-signed loss gradient cancels): the two ranks' gradient
+    # must lie no further from the one rank's than 3x what reversing the
+    # one rank's rows moves it
+    for m, g in grads.items():
+        require(g["two_vs_one"] <= 3 * g["one_vs_reversed_rows"] + 1e-6,
+                (family, "gradients", m, g))
+    return line
+
+
+def ddp_launcher(dev, root: str, tmp: str) -> None:
+    """--data_axis 2 through tools/train_kitti.main itself: the command
+    starts its two ranks (pinned to the one card, so they share it and
+    run on gloo), one step on a 12-line split, and returns rank 0's
+    summary."""
+    import numpy as np
+    from wavelet_monodepth_tpu_torch.tools import train_kitti
+    split = os.path.join(root, "splits", "chip_ddp1")
+    os.makedirs(split, exist_ok=True)
+    with open(os.path.join(root, "splits", "chip", "train_files.txt")) as f:
+        lines = f.read().splitlines()[:TRAIN_B]
+    for name in ("train_files.txt", "val_files.txt"):
+        with open(os.path.join(split, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    argv = train_argv(root, os.path.join(tmp, "ddp_launch_log"))
+    argv[argv.index("--split") + 1] = "chip_ddp1"
+    t0 = time.perf_counter()
+    summary = train_kitti.main(argv + ["--data_axis", str(DDP_RANKS)],
+                               device=dev)
+    seconds = time.perf_counter() - t0
+    require(summary["steps"] == 1 and summary["val_batches"] == 1, summary)
+    require(all(np.isfinite(v) for v in summary["losses"][0].values()),
+            summary["losses"])
+    require(os.path.isfile(os.path.join(summary["checkpoints"][0],
+                                        "encoder.pth")), summary)
+    emit({"phase": "ddp", "family": "kitti", "run": "data_axis_launcher",
+          "ranks": DDP_RANKS, "steps": summary["steps"],
+          "loss": summary["losses"][0]["loss"], "seconds": seconds})
+
+
+def ddp_family(family: str, argv: list, dev, tmp: str) -> dict:
+    """Two ranks, the one-rank reference, the float64 gradient, the
+    checks; returns rank 0's K3 launches."""
+    import numpy as np
+    import torch
+    recs, seconds = run_ddp_ranks(family, argv, tmp)
+    for rec in recs:
+        require(all(np.isfinite(v) for s in rec["steps"]
+                    for v in s["losses"].values()), (family, "losses"))
+        require(rec["launches"] == recs[0]["launches"],
+                (family, "ranks' K3 launches", rec["launches"]))
+    ref = ddp_reference(family, argv, recs, dev)
+    torch.cuda.empty_cache()
+    ddp_compare(family, recs, ref, seconds)
+    return recs[0]["launches"]
+
+
+def phase_ddp(dev, root: str, tmp: str):
+    """Data-parallel training on the one card (module docstring, phase
+    21). Returns K3's launches per rank of the KITTI run."""
+    import torch
+    from wavelet_monodepth_tpu_torch.data import synth
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks' memory is the card's too
+    launches = ddp_family("kitti", train_argv(
+        root, os.path.join(tmp, "ddp_log")), dev, tmp)
+    # per rank: 5 forward + 4 backward per step, 5 forward for validation
+    require(launches == {"banded_warp_fwd": 5 * 4, "banded_warp_bwd": 4 * 3},
+            ("K3 launches per rank", launches))
+    ddp_launcher(dev, root, tmp)
+    zip_path = os.path.join(tmp, "ddp_nyu.zip")
+    synth.fabricate_nyu(zip_path, n_train=DDP_NYU_FRAMES)
+    ddp_family("nyu", ddp_nyu_argv(zip_path, os.path.join(
+        tmp, "ddp_nyu_log")), dev, tmp)
+    emit({"phase": "ddp", "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def ratio(timed: dict, a: str, b: str):
@@ -4749,15 +5282,18 @@ def main():
         phase_native(dev, eval_root, folder18)
         phase_serving_tools(dev, eval_root, folder18,
                             os.path.join(tmp, EVAL_CONFIGS[1][0]), tmp)
+        ddp_launches = phase_ddp(dev, root, tmp)
     # ms: one K3 launch at (12, 192, 640, 3) (backward: the training
     # path's, no source-row pass); launches: the train main path's;
     # launches_kitti_pose: the M+S train main path's (phase 14);
+    # launches_ddp: one rank's of the two-rank KITTI run (phase 21);
     # *_kitti_hr: the 1024x320 B=6 path's launches (phase 15) and one
     # launch at (6, 320, 1024, 3)
     kernels += [{
         "name": k, "route": "cuda", "source": SOURCES["banded_warp"],
         "replaces": WARP_REPLACES, "launches": warp_launches[k],
         "launches_kitti_pose": pose_launches[k],
+        "launches_ddp": ddp_launches[k],
         "max_abs_err": errs[k], **warp_ms[k], **hr[k]}
         for k in ("banded_warp_fwd", "banded_warp_bwd")]
     # K1 / K4: the NYU serving path's launches (the sparse requests of

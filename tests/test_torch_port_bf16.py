@@ -349,9 +349,9 @@ def test_bench_refuses_a_spreading_cell():
     import time
     calls = {"n": 0}
 
-    def slowing():               # each call sleeps 1 ms longer
+    def slowing():               # each call sleeps 25% longer
         calls["n"] += 1
-        time.sleep(0.001 * calls["n"])
+        time.sleep(0.001 * 1.25 ** calls["n"])
 
     out = tbench.measure({"slowing": slowing}, {"slowing": 1}, 3,
                          torch.device("cpu"))["slowing"]

@@ -469,14 +469,26 @@ def test_learning_contract(bf16):
                                   ("coordinator_address", "localhost:1"),
                                   ("num_processes", 2)])
 def test_mesh_flags_raise(flag):
-    opts = TOptions(**FIELDS, device="cpu")
-    opts = dataclasses.replace(opts, **{flag[0]: flag[1]})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TSetup(opts)
+    """The mesh flags run data-parallel training
+    (tests/test_torch_port_ddp.py); what cannot run raises before any
+    rank starts: a setup whose data_axis differs from its process group's
+    ranks, a batch that does not divide across the data mesh (JAX's
+    SystemExit message), half-given multi-host flags."""
+    opts = dataclasses.replace(TOptions(**FIELDS, device="cpu"),
+                               **{flag[0]: flag[1]})
     argv = ["--data_path", "unused.zip", "--device", "cpu",
             f"--{flag[0]}", str(flag[1])]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        train_nyu.main(argv)
+    if flag[0] == "data_axis":
+        with pytest.raises(ValueError, match="data_axis=2 in a process "
+                                             "group of 1 rank"):
+            TSetup(opts)
+        with pytest.raises(SystemExit, match="--batch_size 3 must divide "
+                                             "across the 2-device data mesh"):
+            train_nyu.main(argv + ["--batch_size", "3"])
+    else:
+        TSetup(opts)
+        with pytest.raises(SystemExit, match="go together"):
+            train_nyu.main(argv)
 
 
 def test_imagenet_init_note_and_guard(capsys, tmp_path):

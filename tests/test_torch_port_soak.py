@@ -83,7 +83,10 @@ def test_analysis_keys_and_checks():
     assert s["checks"]["anon_rss_stable"] is False
 
 
-def test_soak_kills_resumes_and_reports(tmp_path):
+def test_soak_kills_resumes_and_reports(tmp_path, monkeypatch):
+    # the trainer subprocess on one thread: with every core's worth of
+    # threads it competes with the suite's other workers and ran 6x slower
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     root = str(tmp_path / "kitti")
     write_mount(root, 4, 75, 124)
     out = str(tmp_path / "soak.json")

@@ -300,12 +300,12 @@ def _baseline_polyphase():
     (dict(frame_ids=(0, -1, 1), pose_model_type="shared"), "'shared'"),
     (dict(encoder_type="mobilenet", weights_init="pretrained",
           imagenet_weights_path="resnet18.pth"), "MobileNetV2"),
-    (_baseline_polyphase, "use_polyphase"),
-    (dict(data_axis=2), "data_axis")])
+    (_baseline_polyphase, "use_polyphase")])
 def test_unported_features_raise(kw, match):
     """What the port does not run raises: the options JAX cannot run
-    either ("shared" pose nets, MobileNetV2's ImageNet start), the
-    TPU-only polyphase upconv, and the tools of ROADMAP queue 1 item 6."""
+    either ("shared" pose nets, MobileNetV2's ImageNet start) and the
+    TPU-only polyphase upconv. (Data parallelism is ported:
+    tests/test_torch_port_ddp.py.)"""
     with pytest.raises(NotImplementedError, match=match):
         if callable(kw):
             kw()

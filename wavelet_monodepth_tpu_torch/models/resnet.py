@@ -27,7 +27,12 @@ uses the unbiased one). The port is held to the JAX package. In
 bfloat16, eval mode runs in the module's dtype (after a full cast the
 running statistics are bfloat16, as JAX casts its batch_stats), and
 train mode computes the batch statistics in float32, as flax does, and
-keeps float32 running statistics exact.
+keeps float32 running statistics exact. Under data parallelism (more
+than one rank, `parallel/mesh.py`) the train-mode statistics are those
+of the global batch, as under JAX's data mesh: the count, sum and
+squared deviations go through the differentiable `global_sum`, so the
+gradients are the global batch's too, and the running statistics move
+alike on every rank. Every BN of the port's networks is this class.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -45,6 +52,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if mesh.world_size() > 1:
+            return self._global_batch_forward(x)
         with torch.no_grad():
             xs = x.to(torch.promote_types(x.dtype, torch.float32))
             var, mean = torch.var_mean(xs, dim=(0, 2, 3), unbiased=False)
@@ -54,6 +63,27 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the ranks' global batch: two passes in float32
+        or wider (the mean, then the squared deviations from it), each one
+        all-reduce, differentiable."""
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = xs.shape[1]
+        first = mesh.global_sum(torch.cat([
+            xs.sum(dim=(0, 2, 3)), xs.new_full((1,), xs.numel() // c)]))
+        count = first[c]
+        mean = first[:c] / count
+        dev = xs - mean[None, :, None, None]
+        var = mesh.global_sum((dev * dev).sum(dim=(0, 2, 3))) / count
+        with torch.no_grad():
+            dt = self.running_mean.dtype
+            self.running_mean.lerp_(mean.detach().to(dt), self.momentum)
+            self.running_var.lerp_(var.detach().to(dt), self.momentum)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = dev * scale[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype)
 
 
 _BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),

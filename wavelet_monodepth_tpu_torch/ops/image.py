@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
+
 _PAD_MODES = {"reflect": "reflect", "zero": "constant",
               "replicate": "replicate"}
 
@@ -111,7 +113,9 @@ def grid_sample_border(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 
 def get_smooth_loss(disp: torch.Tensor, img: torch.Tensor,
                     gamma: float = 2.0) -> torch.Tensor:
-    """Edge-aware disparity smoothness (`KITTI/layers.py:239-252`)."""
+    """Edge-aware disparity smoothness (`KITTI/layers.py:239-252`); its
+    means are the global batch's under data parallelism
+    (`parallel/mesh.global_mean`)."""
     grad_disp_x = torch.abs(disp[:, :, :-1, :] - disp[:, :, 1:, :])
     grad_disp_y = torch.abs(disp[:, :-1, :, :] - disp[:, 1:, :, :])
     grad_img_x = torch.mean(torch.abs(img[:, :, :-1, :] - img[:, :, 1:, :]),
@@ -120,7 +124,7 @@ def get_smooth_loss(disp: torch.Tensor, img: torch.Tensor,
                             dim=3, keepdim=True)
     grad_disp_x = grad_disp_x * torch.exp(-gamma * grad_img_x)
     grad_disp_y = grad_disp_y * torch.exp(-gamma * grad_img_y)
-    return grad_disp_x.mean() + grad_disp_y.mean()
+    return mesh.global_mean(grad_disp_x) + mesh.global_mean(grad_disp_y)
 
 
 def get_grad_map(img: torch.Tensor, reduce: bool = False) -> torch.Tensor:

@@ -5,7 +5,8 @@ Counterpart of `wavelet_monodepth_tpu/train/kitti.py` (the reference's
 encoder, the KITTI wavelet or baseline decoder, and for monocular and
 mono+stereo (M+S) training the pose networks ("separate_resnet": a
 ResNet over the stacked frames + PoseDecoder; "posecnn"), in "pairs" or
-"all" mode; f32 or bf16 mixed precision, one card.
+"all" mode; f32 or bf16 mixed precision, on one card or data-parallel
+over ranks.
 
 Where JAX returns a new state from a pure step, the port's `train_step`
 updates the state in place (parameters, BN running statistics, Adam
@@ -15,6 +16,14 @@ variance with the biased batch variance, as flax does
 (`models/resnet.py`). `--steps_per_call` is a plain loop of single steps
 in the CLI: the JAX package's `lax.scan` amortises a TPU dispatch cost
 the port does not have.
+
+Under data parallelism (`parallel/mesh.py`; JAX's data mesh) each rank
+holds its rows of the global batch: BN's statistics, the loss terms and
+the automask noise are the global batch's, and after backward one
+bucketed all-reduce averages the gradients (the pose encoder runs once
+per pair, so DDP's per-parameter hooks would fire twice), so every rank
+takes the same step, and its parameters, BN statistics and Adam state
+stay equal to the other ranks'.
 
 `--bfloat16` is JAX's mixed-precision step
 (`make_train_step(mixed_precision=True)`): the networks, the pose nets
@@ -45,6 +54,7 @@ from ..models.factory import (make_depth_decoder, make_depth_encoder,
 from ..models.layers import init_params
 from ..ops import augment
 from ..ops.geometry import transformation_from_parameters
+from ..parallel import mesh
 from ..utils.config import KittiOptions
 from ..utils.device import resolve_device
 from ..utils.precision import cast_floats
@@ -75,7 +85,9 @@ class KittiTrainSetup:
     def __init__(self, opts: KittiOptions, steps_per_epoch: int = 1000,
                  device=None):
         """device: where the modules and steps run; None follows
-        `opts.device` (the card by default), which raises without one."""
+        `opts.device` (the card by default), which raises without one.
+        opts.data_axis must equal the ranks of the process group (1
+        without one)."""
         opts.validate_for_training()
         if opts.native_decode:
             # JAX's trainer accepts the flag and never reads it; a flag
@@ -85,13 +97,7 @@ class KittiTrainSetup:
                 "trainer does not read it (only its tools/evaluate_depth.py "
                 "and tools/serve_artifact.py do), so training refuses it; "
                 "tools/evaluate_depth.py --native_decode takes it")
-        for name, default in (("data_axis", 1),
-                              ("coordinator_address", None),
-                              ("num_processes", None)):
-            if getattr(opts, name) != default:
-                raise NotImplementedError(
-                    f"--{name} is not ported yet (ROADMAP.md, Queue 1 item 6: "
-                    "multi-GPU and tools)")
+        mesh.require_ranks(opts.data_axis)
         if (opts.weights_init == "pretrained" and opts.imagenet_weights_path
                 and opts.encoder_type != "resnet"):
             raise NotImplementedError(
@@ -286,6 +292,8 @@ class KittiTrainSetup:
                                  params=params)
         losses = cast_floats(losses, torch.float32)
         losses["loss"].backward()
+        mesh.allreduce_gradients(p for g in state.optimizer.param_groups
+                                 for p in g["params"])
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in losses.items()}

@@ -17,6 +17,13 @@ row-banded, so K3 does not apply.
 The automask tie-break noise is 1e-5 * N(0, 1) per loss scale. `noise` is
 a `torch.Generator` (on the batch's device) to draw it from, or a mapping
 {scale: (N, H, W, 1) standard-normal tensor} to inject given draws.
+
+Under data parallelism (`parallel/mesh.py`) every term is the global
+batch's, as under JAX's data mesh: the ratio terms (reprojection, hint,
+disparity L1) divide global sums, the means (smoothness, the
+monodepth2 loss) are global means, and the noise is this rank's rows of
+one draw for the global batch. The logged losses are global. With one
+rank every term is computed as before.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from ..ops.geometry import (backproject_depth, disp_to_depth, project_3d,
 from ..ops.image import get_smooth_loss, grid_sample_border, resize_bilinear
 from ..ops.ssim import ssim as ssim_fn
 from ..ops.warp import grid_sample_border_banded
+from ..parallel import mesh
 
 Tensor = torch.Tensor
 Noise = Union[torch.Generator, Mapping[int, Tensor]]
@@ -164,8 +172,7 @@ def compute_loss_masks(reprojection_loss: Tensor,
 
 def _automask_noise(noise: Noise, scale: int, like: Tensor) -> Tensor:
     if isinstance(noise, torch.Generator):
-        draw = torch.randn(like.shape, generator=noise, dtype=like.dtype,
-                           device=like.device)
+        draw = mesh.randn_rows(like.shape, noise, like.dtype, like.device)
     else:
         draw = noise[scale].to(like.device, like.dtype)
     return draw * 1e-5
@@ -214,8 +221,8 @@ def compute_losses_hints(inputs: Dict, outputs: Dict, opts,
 
         reproj_mask, hint_mask = compute_loss_masks(reproj, ident,
                                                     hint_reproj)
-        reproj_term = torch.sum(reproj * reproj_mask) / (
-            torch.sum(reproj_mask) + 1e-7)
+        num, den = mesh.global_sums(reproj * reproj_mask, reproj_mask)
+        reproj_term = num / (den + 1e-7)
         losses[f"reproj_loss/{scale}"] = reproj_term
         outputs[("identity_selection", scale)] = 1.0 - reproj_mask
 
@@ -224,7 +231,8 @@ def compute_losses_hints(inputs: Dict, outputs: Dict, opts,
             hint_loss = compute_proxy_supervised_loss(
                 outputs[("depth", 0, scale)], inputs[("depth_hint",)],
                 inputs[("depth_hint_mask",)], hint_mask)
-            hint_term = torch.sum(hint_loss) / (torch.sum(hint_mask) + 1e-7)
+            num, den = mesh.global_sums(hint_loss, hint_mask)
+            hint_term = num / (den + 1e-7)
             outputs[("depth_hint_pixels", scale)] = hint_mask
             losses[f"depth_hint_loss/{scale}"] = hint_term
             loss = loss + hint_term
@@ -244,7 +252,8 @@ def compute_losses_hints(inputs: Dict, outputs: Dict, opts,
                                - torch.log(dh + c)) * mask
             else:
                 l1 = torch.abs(disp_full - dh) * mask
-            disp_term = w_disp * torch.sum(l1) / (torch.sum(mask) + 1e-7)
+            num, den = mesh.global_sums(l1, mask)
+            disp_term = w_disp * num / (den + 1e-7)
             losses[f"hint_disp_l1/{scale}"] = disp_term
             loss = loss + disp_term
 
@@ -291,7 +300,7 @@ def compute_losses_mdp(inputs: Dict, outputs: Dict, opts,
             if ident is not None:
                 outputs[("identity_selection", scale)] = (
                     idxs >= ident.shape[-1]).to(disp.dtype)
-        loss = to_optimise.mean()
+        loss = mesh.global_mean(to_optimise)
 
         mean_disp = disp.mean(dim=(1, 2), keepdim=True)
         norm_disp = disp / (mean_disp + 1e-7)

@@ -6,6 +6,11 @@ Laina's BerHu and a border-cropped L1, on NHWC tensors. The NYU train
 step uses none of them (it trains on plain L1, `NYUv2/train.py:255`), as
 in JAX. The reference's `SpatialGradientsLoss` is dead code and is not
 reproduced.
+
+Under data parallelism (`parallel/mesh.py`) each mean over the batch is
+the global batch's (`mesh.global_mean`), and BerHu's threshold is the
+global batch's largest error (`mesh.global_max`), as under JAX's data
+mesh; with one rank they are the plain means.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -51,9 +58,9 @@ def ssim_windowed(img1: Tensor, img2: Tensor, val_range: float,
     c2 = (0.03 * val_range) ** 2
     v1 = 2.0 * s12 + c2
     v2 = s1 + s2 + c2
-    cs = torch.mean(v1 / v2)
+    cs = mesh.global_mean(v1 / v2)
     ssim_map = ((2 * mu12 + c1) * v1) / ((mu1_sq + mu2_sq + c1) * v2)
-    ret = (torch.mean(ssim_map) if size_average
+    ret = (mesh.global_mean(ssim_map) if size_average
            else torch.mean(ssim_map, dim=(1, 2, 3)))
     return (ret, cs) if full else ret
 
@@ -61,10 +68,10 @@ def ssim_windowed(img1: Tensor, img2: Tensor, val_range: float,
 def berhu_loss(pred: Tensor, target: Tensor) -> Tensor:
     """Laina et al.'s reverse Huber (`loss.py:107-124`)."""
     diff = torch.abs(pred - target)
-    c = 0.2 * torch.max(diff)
+    c = 0.2 * mesh.global_max(torch.max(diff))
     loss = torch.where(diff < c, diff,
                        (diff ** 2 + c ** 2) / (2 * c + 1e-9))
-    return torch.mean(loss)
+    return mesh.global_mean(loss)
 
 
 def cropped_l1_loss(pred: Tensor, target: Tensor,
@@ -74,4 +81,4 @@ def cropped_l1_loss(pred: Tensor, target: Tensor,
     mask = torch.zeros_like(target)
     mask[:, crop_border:target.shape[1] - crop_border,
          crop_border:target.shape[2] - crop_border, :] = 1.0
-    return torch.mean(diff * mask)
+    return mesh.global_mean(diff * mask)

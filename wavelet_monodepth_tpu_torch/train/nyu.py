@@ -24,6 +24,11 @@ arrive float32 at the masters and Adam's state stays float32. The image
 is cast to bfloat16; BN keeps float32 running statistics; the target and
 the losses stay float32. The eval step runs in float32.
 
+Under data parallelism (`parallel/mesh.py`) each rank holds its rows of
+the global batch: BN's statistics and the L1 and LL means are the global
+batch's (`mesh.global_mean`), and one all-reduce after backward averages
+the gradients, so every rank takes JAX's data-mesh step.
+
 `input_hw` and `depth_hw` are the feed's sizes (the CLI's loader makes
 them; tests shrink them as the JAX package's do).
 """
@@ -39,6 +44,7 @@ from ..models.layers import init_params
 from ..ops import augment
 from ..ops.image import resize_bilinear
 from ..ops.wavelets import haar_dwt_J
+from ..parallel import mesh
 from ..utils.config import NyuOptions
 from ..utils.device import resolve_device
 from ..utils.precision import cast_floats
@@ -56,13 +62,10 @@ class NyuTrainSetup:
 
     def __init__(self, opts: NyuOptions, device=None):
         """device: where the modules and steps run; None follows
-        `opts.device` (the card by default), which raises without one."""
-        for name, default in (("data_axis", 1), ("coordinator_address", None),
-                              ("num_processes", None)):
-            if getattr(opts, name) != default:
-                raise NotImplementedError(
-                    f"--{name} is not ported yet (ROADMAP.md, Queue 1 item 6: "
-                    "multi-GPU and tools)")
+        `opts.device` (the card by default), which raises without one.
+        opts.data_axis must equal the ranks of the process group (1
+        without one)."""
+        mesh.require_ranks(opts.data_axis)
         self.opts = opts
         self.device = resolve_device(opts.device if device is None
                                      else device)
@@ -136,7 +139,7 @@ class NyuTrainSetup:
                 pred = resize_bilinear(pred, pred.shape[1] * 2 ** scale,
                                        pred.shape[2] * 2 ** scale,
                                        align_corners=True)
-            l_depth = torch.mean(torch.abs(pred - depth_n))
+            l_depth = mesh.global_mean(torch.abs(pred - depth_n))
             loss = 0.1 * l_depth
             if scale in opts.loss_scales:
                 total = total + loss
@@ -144,8 +147,8 @@ class NyuTrainSetup:
             losses[f"loss_depth/{scale}"] = l_depth
         if opts.use_wavelets and ("wavelets", 3, "LL") in outputs:
             yl_gt, _ = haar_dwt_J(depth_n, 4)
-            l_ll = torch.mean(torch.abs(outputs[("wavelets", 3, "LL")]
-                                        - yl_gt)) / (2.0 ** 4)
+            l_ll = mesh.global_mean(torch.abs(outputs[("wavelets", 3, "LL")]
+                                              - yl_gt)) / (2.0 ** 4)
             losses["loss_LL3"] = l_ll
             if opts.supervise_LL:
                 total = total + l_ll
@@ -176,6 +179,8 @@ class NyuTrainSetup:
         losses = cast_floats(self.compute_losses(outputs, depth_n),
                              torch.float32)
         losses["loss"].backward()
+        mesh.allreduce_gradients(p for g in state.optimizer.param_groups
+                                 for p in g["params"])
         state.optimizer.step()
         state.step += 1
         return {k: v.detach() for k, v in losses.items()}

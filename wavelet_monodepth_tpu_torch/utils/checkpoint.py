@@ -16,6 +16,10 @@ them, and `latest_checkpoint` serves `--auto_resume`.
 
 Each file is written to a temporary name and renamed, so a folder cut
 off mid-save lacks a file and `latest_checkpoint` skips it.
+
+Under data parallelism (`parallel/mesh.py`) every rank calls the savers:
+rank 0 writes the files, then all ranks meet at a barrier, so none reads
+a folder before it is complete. Every rank reads on resume.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import mesh
 from .config import save_opts
 
 _FILES = ("encoder.pth", "depth.pth", "adam.pth")
@@ -50,18 +55,21 @@ def _cpu(sd: dict) -> dict:
 def save_checkpoint(log_path: str, epoch: int, state, opts) -> str:
     """Write models/weights_<epoch>/ (encoder.pth with the feed size,
     depth.pth, pose_encoder.pth and pose.pth where the state has them,
-    adam.pth last) and models/opt.json. Returns the folder."""
+    adam.pth last) and models/opt.json on rank 0; every rank returns the
+    folder once it is complete."""
     models = os.path.join(log_path, "models")
     folder = os.path.join(models, f"weights_{epoch}")
-    os.makedirs(folder, exist_ok=True)
-    for name, module in state.modules().items():
-        sd = _cpu(module.state_dict())
-        if name == "encoder":
-            sd.update(height=int(opts.height), width=int(opts.width),
-                      use_stereo=bool(opts.use_stereo))
-        _save(sd, os.path.join(folder, f"{name}.pth"))
-    _save(state.optimizer.state_dict(), os.path.join(folder, "adam.pth"))
-    save_opts(opts, os.path.join(models, "opt.json"))
+    if mesh.is_main():
+        os.makedirs(folder, exist_ok=True)
+        for name, module in state.modules().items():
+            sd = _cpu(module.state_dict())
+            if name == "encoder":
+                sd.update(height=int(opts.height), width=int(opts.width),
+                          use_stereo=bool(opts.use_stereo))
+            _save(sd, os.path.join(folder, f"{name}.pth"))
+        _save(state.optimizer.state_dict(), os.path.join(folder, "adam.pth"))
+        save_opts(opts, os.path.join(models, "opt.json"))
+    mesh.barrier()
     return folder
 
 
@@ -100,15 +108,18 @@ def _load_adam(folder: str, state, device) -> None:
 
 def save_nyu_checkpoint(log_path: str, epoch: int, state, opts) -> str:
     """Write models/weights_<epoch>/ (model.pth, adam.pth last) and
-    models/opt.json. Returns the folder."""
+    models/opt.json on rank 0; every rank returns the folder once it is
+    complete."""
     from ..tools.torch_import import nyu_model_state
     models = os.path.join(log_path, "models")
     folder = os.path.join(models, f"weights_{epoch}")
-    os.makedirs(folder, exist_ok=True)
-    _save(nyu_model_state(state.encoder, state.decoder),
-          os.path.join(folder, "model.pth"))
-    _save(state.optimizer.state_dict(), os.path.join(folder, "adam.pth"))
-    save_opts(opts, os.path.join(models, "opt.json"))
+    if mesh.is_main():
+        os.makedirs(folder, exist_ok=True)
+        _save(nyu_model_state(state.encoder, state.decoder),
+              os.path.join(folder, "model.pth"))
+        _save(state.optimizer.state_dict(), os.path.join(folder, "adam.pth"))
+        save_opts(opts, os.path.join(models, "opt.json"))
+    mesh.barrier()
     return folder
 
 

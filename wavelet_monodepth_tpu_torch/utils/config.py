@@ -82,7 +82,7 @@ class KittiOptions:
     eval_out_dir: Optional[str] = None
     post_process: bool = False
     # additions of the JAX package
-    data_axis: int = 1                     # data-parallel device count (the port runs one card)
+    data_axis: int = 1                     # data-parallel rank count: N > 1 starts N ranks on this host, one per visible card (parallel/mesh.py)
     bfloat16: bool = False                 # bf16 mixed precision: the networks run in bf16 over f32 master params and Adam state (train/kitti.py)
     native_decode: bool = False            # eval feed via the C++ threaded decoder (data/native_loader.py; cv2 LANCZOS4 vs PIL LANCZOS differ ~1e-3/px); the trainer refuses it
     stereo_warp_kernel: str = "auto"       # "s"-frame/hint warp: "auto"/"off" = F.grid_sample, "on" = the banded warp kernel (ops/warp.py)
@@ -94,9 +94,9 @@ class KittiOptions:
     host_augment: bool = False             # jitter + float cast on the host (PIL); default ships uint8 frames and jitters on the card (ops/augment.py)
     log_always: bool = False               # keep the early log cadence (every log_frequency steps) for the whole run
     steps_per_call: int = 1                # K optimizer steps per loop turn (a plain loop of single steps; drop-last on the per-epoch remainder)
-    coordinator_address: Optional[str] = None  # multi-host (not ported yet)
-    num_processes: Optional[int] = None        # multi-host (not ported yet)
-    process_id: Optional[int] = None           # multi-host (not ported yet)
+    coordinator_address: Optional[str] = None  # multi-host: host:port of the store that process 0's first rank serves
+    num_processes: Optional[int] = None        # multi-host: the number of hosts (each starts one rank per visible card)
+    process_id: Optional[int] = None           # multi-host: this host's index; global rank = process_id * local ranks + local rank
     # the port's own
     device: str = "cuda"                   # cuda (raises without a card) | cpu
 
@@ -157,14 +157,14 @@ class NyuOptions:
     num_workers: int = 4
     load_weights_folder: Optional[str] = None
     # additions of the JAX package
-    data_axis: int = 1                     # data-parallel device count (the port runs one card)
+    data_axis: int = 1                     # data-parallel rank count: N > 1 starts N ranks on this host, one per visible card (parallel/mesh.py)
     bfloat16: bool = False
     checkpoint_backend: str = "msgpack"    # the JAX package's state format
     auto_resume: bool = False              # restore the newest weights_<epoch> under log_dir/model_name and continue from epoch+1 (--load_weights_folder wins)
     float_feed: bool = False               # cast and clamp on the host (the reference's ToTensor); default ships uint8 and casts on the card
-    coordinator_address: Optional[str] = None  # multi-host (not ported yet)
-    num_processes: Optional[int] = None        # multi-host (not ported yet)
-    process_id: Optional[int] = None           # multi-host (not ported yet)
+    coordinator_address: Optional[str] = None  # multi-host: host:port of the store that process 0's first rank serves
+    num_processes: Optional[int] = None        # multi-host: the number of hosts (each starts one rank per visible card)
+    process_id: Optional[int] = None           # multi-host: this host's index; global rank = process_id * local ranks + local rank
     # the port's own
     device: str = "cuda"                   # cuda (raises without a card) | cpu
 

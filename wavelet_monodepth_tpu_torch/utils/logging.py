@@ -14,7 +14,8 @@ The port's images are NHWC, as JAX's. The visuals copy the rows they
 log of every tensor they read to the host in one pass (asynchronous
 copies and one synchronisation per call), then work in numpy, as JAX
 does on its host arrays. `TrainTimer` formats the reference's progress
-line.
+line. Under data parallelism only rank 0 holds writers, so the visuals
+show rank 0's rows of the global batch (JAX's `mesh.local_rows`).
 """
 
 from __future__ import annotations
