@@ -10,9 +10,11 @@ eigen-split evaluation (ResNet18 640x192 and ResNet50 1024x320), the
 NYUv2 serving and evaluation path (DenseNet161 + the wavelet decoder at
 640x480) and its training (the same model at batch 8), the 1024x320 B=6
 training of the published HR rows, the training visuals, a soak with a
-kill and a resume, the sparsity-curve tools, the native decoder and
-data-parallel training over two ranks, plus the fused wave stage kernel on the serving slice's own stage
-inputs, in phases; any failure raises and exits non-zero:
+kill and a resume, the sparsity-curve tools, the native decoder,
+data-parallel training over two ranks, height-banded (spatial) inference
+over two ranks and the decoders' polyphase upconv, plus the fused wave
+stage kernel on the serving slice's own stage inputs, in phases; any
+failure raises and exits non-zero:
 
   1. device: needs CUDA (raises otherwise), turns TF32 off, prints the
      card's name and power limit;
@@ -61,6 +63,18 @@ inputs, in phases; any failure raises and exits non-zero:
      oracle's interior (2 px for yh and x1, 4 px for yl_new; <= 1e-4) on
      the decoder's stage inputs at scales 3, 2, 1, B=16 and B=1, under
      the 10% maskgen, all-zero and all-one masks;
+  5d. polyphase: use_polyphase on against off on the same weights. KITTI
+     R18 640x192, B=12, float32: dense disparities within 5e-5 (JAX's
+     bound, tests/test_decoders_kitti.py:165-167), sparse at threshold
+     0.05 on xla within 5e-5 with op counts at rtol 1e-6 (a mask flip
+     only at a near tie, the off decoder then rerun under the on run's
+     masks), thresh -1 sparse == dense bit for bit with the fold on (cuDNN
+     deterministic); NYU DenseNet161 + NyuDecoderWave 640x480, B=1,
+     seeded: dense disparities within 2e-5 (tests/test_decoders_nyu.py:
+     125-135). Information only: the decoder's forward and forward +
+     backward ms on against off at B=12, and the cuDNN kernels the
+     profiler names for the fold's 2x2 low-res convs and for the costliest
+     convs of each;
   6. serving times (CUDA events, warm-up, median of 3 interleaved windows
      with min and max): per-conv kernel vs plain vs cuDNN's F.conv2d with
      each conv's bound at float32 accuracy (3xTF32 tensor rate or bytes)
@@ -276,9 +290,11 @@ inputs, in phases; any failure raises and exits non-zero:
      on both folders names resnet18 and resnet50.
  21. ddp: data-parallel training, two ranks on the one card over gloo
      (NCCL refuses two ranks on one device), each a process of its own
-     running tools/train_kitti.main (then train_nyu.main) with the
-     multi-host flags of its rank, its steps recorded through wrappers
-     (ddp_rank). KITTI: phase 8's flags (ResNet18 + the wavelet decoder,
+     (rank_jobs) running tools/train_kitti.main, then train_nyu.main,
+     each with the multi-host flags of its rank and a process group of
+     its own, its steps recorded through wrappers (ddp_rank), then phase
+     22's forwards: one launch for the three, so the ranks' start-up is
+     paid once. KITTI: phase 8's flags (ResNet18 + the wavelet decoder,
      640x192, stereo + hints, --stereo_warp_kernel on) at the global B=12
      (6 rows per rank), 3 steps and one validation batch; K3 launches 5
      forward + 4 backward per rank per step (5 more forward for the
@@ -295,15 +311,36 @@ inputs, in phases; any failure raises and exits non-zero:
      one rank (median after the first step), the gradient all-reduce's
      ms and its share of the step, with the card's name and power limit.
      Then tools/train_kitti.main --data_axis 2 starts its own two ranks
-     for one step on a 12-line split. A rank that fails or outlasts 300 s
-     fails the phase.
+     for one step on a 12-line split. A rank that fails or the launch
+     outlasting 300 s fails the phase.
+ 22. spatial: height-banded inference, the same two rank processes on
+     the one card (gloo) after phase 21's training (spatial_rank), KITTI
+     R18 at the published HR size, 1024x320, B=1 (seeded weights, a
+     seeded image) through parallel/mesh.spatial_forward on each rank's
+     160-row band: dense,
+     and sparse at threshold 0.05 on xla, pallas (K1), pallas2d (K4) and
+     compact (K5/K6, compact_cap 1.0), each with the kernels' counts from
+     0 around it, then 3 timed forwards. Against the one-card forward of
+     the same weights, image and backend (computed while the ranks run):
+     the ranks' full-height outputs bitwise equal; disparities within 1e-5
+     (tests/test_spatial.py), or, where float32 under cuDNN's algorithm
+     choices for the band shapes cannot hold that, within 3x the floor
+     that the same image at B=2 shows against B=1 (both printed); wavelet
+     masks equal except at near ties (the one-card forward then rerun
+     under the ranks' masks) and total_ops equal. Each kernel case also
+     against the one-card xla answer under phase 5's contract: within
+     TOL (compact away from COMPACT_RING), masks but for near ties, xla's
+     total_ops, no overflow. K1, K4, K5 and K6 launched in each rank as
+     often as on one card; no scatter fault in either rank. ms per
+     forward of each rank and of one card, information only.
 
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
 summary (K1/K4 with the NYU path's `launches_nyu` and `*_nyu` B=8 sums,
 K3 with the M+S run's `launches_kitti_pose` and the 1024x320 B=6 run's
-`launches_kitti_hr` and `*_kitti_hr` per-launch times, and one rank's
-`launches_ddp` of phase 21's two-rank run) and the last is
+`launches_kitti_hr` and `*_kitti_hr` per-launch times, one rank's
+`launches_ddp` of phase 21's two-rank run, and K1, K4, K5 and K6 with
+one rank's `launches_spatial` of a phase 22 forward) and the last is
 {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
@@ -542,12 +579,13 @@ def raw_masks_of(out):
             for s in (0, 1, 2)}
 
 
-def same_answer(ours, ref, thresh, rerun):
-    """disp within TOL of the xla answer. Where a threshold mask differs,
-    xla reruns under the kernel run's masks (`rerun(masks)`), so every
-    scale sees the same history, and each kernel-run mask pixel must equal
-    that rerun's own threshold decision or lie where max |yh| is within
-    1e-5 of the threshold."""
+def near_tie_reference(ours, ref, thresh, rerun):
+    """(the reference to hold `ours` to, mask flips per scale). Where a
+    threshold mask of `ours` differs from `ref`'s, the reference reruns
+    under ours' masks (`rerun(masks)`), so every scale sees the same
+    history, and each of ours' mask pixels must equal that rerun's own
+    threshold decision or lie where max |yh| is within 1e-5 of the
+    threshold."""
     import torch
     flips = {s: int((ours[("wavelet_mask", s)]
                      != ref[("wavelet_mask", s)]).sum()) for s in range(3)}
@@ -565,6 +603,14 @@ def same_answer(ours, ref, thresh, rerun):
             require(bool(((raw[i][..., 0] == decided) | (margin < 1e-5))
                          .all()),
                     f"mask differs away from the threshold at scale {i}")
+    return ref, flips
+
+
+def same_answer(ours, ref, thresh, rerun):
+    """disp within TOL of the xla answer, masks held to it by
+    near_tie_reference."""
+    import torch
+    ref, flips = near_tie_reference(ours, ref, thresh, rerun)
     err = max(float((ours[("disp", s)] - ref[("disp", s)]).abs().max())
               for s in range(4))
     require(all(bool(torch.isfinite(ours[("disp", s)]).all())
@@ -802,6 +848,122 @@ def phase_contracts_r50(dev):
             require(err <= TOL and ops_equal and not any(overflow.values())
                     and got == launches, row)
             emit(row)
+
+
+# --- phase 5d: polyphase ---------------------------------------------------
+
+POLY_B = 12                    # the published KITTI batch
+POLY_THRESH = 0.05
+POLY_TOL = 5e-5                # JAX's bound, tests/test_decoders_kitti.py:165
+POLY_OPS_RTOL = 1e-6           # tests/test_decoders_kitti.py:176
+POLY_NYU_TOL = 2e-5            # JAX's bound, tests/test_decoders_nyu.py:125
+
+
+def polyphase_twin(dec):
+    """`dec` with use_polyphase, on its weights and device."""
+    twin = type(dec)(dec.num_ch_enc, use_polyphase=True)
+    twin.load_state_dict(dec.state_dict(), strict=True)
+    return twin.to(next(dec.parameters()).device).eval()
+
+
+def disp_max_gap(a: dict, b: dict) -> float:
+    return max(float((a[("disp", s)] - b[("disp", s)]).abs().max())
+               for s in range(4))
+
+
+def low_res_convs(prof) -> list:
+    """conv_breakdown's rows of the fold's per-phase 2x2 convs, forward
+    and backward, with the cuDNN kernels that ran them."""
+    return [r for r in conv_breakdown(prof, top=64)
+            if any(len(sh) == 4 and sh[-2:] == [2, 2]
+                   for sh in r["input_shapes"])]
+
+
+def phase_polyphase(dev, enc, dec) -> None:
+    """use_polyphase on against off (module docstring, phase 5d)."""
+    import torch
+    from wavelet_monodepth_tpu_torch.models.decoders_nyu import \
+        NyuDecoderWave
+    from wavelet_monodepth_tpu_torch.models.densenet import \
+        DenseNet161Encoder
+    from wavelet_monodepth_tpu_torch.models.layers import init_params
+    on = polyphase_twin(dec)
+    g = torch.Generator().manual_seed(11)
+    x = torch.rand(POLY_B, H, W, 3, generator=g).to(dev)
+    torch.backends.cudnn.deterministic = True
+    with torch.no_grad():       # feats also feed the backward timed below
+        feats = enc(x)
+        dense_on = on(feats)
+        dense_gap = disp_max_gap(dense_on, dec(feats))
+        sp_on = on(feats, thresh_ratio=POLY_THRESH)
+        ref, flips = near_tie_reference(
+            sp_on, dec(feats, thresh_ratio=POLY_THRESH), POLY_THRESH,
+            lambda raw: dec(feats, thresh_ratio=POLY_THRESH,
+                            mask_override=raw))
+        sparse_gap = disp_max_gap(sp_on, ref)
+        ops = ref[("total_ops", -1)]
+        ops_gap = float(((sp_on[("total_ops", -1)] - ops).abs() / ops).max())
+        minus1 = on(feats, thresh_ratio=-1.0)
+        identity = all(torch.equal(minus1[k], dense_on[k]) for k in dense_on)
+    torch.backends.cudnn.deterministic = False
+    emit({"phase": "polyphase", "check": "kitti_r18", "batch": POLY_B,
+          "res": [H, W], "dense_disp_gap": dense_gap,
+          "sparse_disp_gap": sparse_gap, "thresh": POLY_THRESH,
+          "mask_flips": flips, "total_ops_rel_gap": ops_gap,
+          "thresh_minus1_sparse_equals_dense_bitwise": identity,
+          "tol": POLY_TOL, "ops_rtol": POLY_OPS_RTOL, **_card})
+    require(dense_gap <= POLY_TOL, ("polyphase dense", dense_gap))
+    require(sparse_gap <= POLY_TOL, ("polyphase sparse", sparse_gap))
+    require(ops_gap <= POLY_OPS_RTOL, ("polyphase total_ops", ops_gap))
+    require(identity, "polyphase: thresh -1 sparse is not dense bitwise")
+
+    # the decoder alone at B=12, forward and forward + backward (a sum of
+    # the disparities), and the cuDNN kernels of the fold's 2x2 convs
+    def fwd(m):
+        def run():
+            with torch.no_grad():
+                m(feats)
+        return run
+
+    def fwd_bwd(m):
+        def run():
+            out = m(feats)
+            sum(out[("disp", s)].sum() for s in range(4)).backward()
+        return run
+    timed = time_variants({"forward_off": fwd(dec), "forward_on": fwd(on),
+                           "fwd_bwd_off": fwd_bwd(dec),
+                           "fwd_bwd_on": fwd_bwd(on)}, iters=10)
+    # the plain composition's pick is in phase 10's trace of the train
+    # step (upconv_3_1's forward at B=12 as cuDNN's FFT conv)
+    prof_on = trace_calls(fwd_bwd(on), 1, shapes=True)[-1]
+    for m in (dec, on):
+        m.zero_grad(set_to_none=True)
+    emit({"phase": "polyphase", "run": "time_decoder", "batch": POLY_B,
+          "res": [H, W], "dtype": "float32", "ms": timed,
+          "forward_on_over_off": timed["forward_on"]["ms_median"]
+          / timed["forward_off"]["ms_median"],
+          "fwd_bwd_on_over_off": timed["fwd_bwd_on"]["ms_median"]
+          / timed["fwd_bwd_off"]["ms_median"],
+          "low_res_convs_on": low_res_convs(prof_on),
+          "costliest_convs_on": conv_breakdown(prof_on, top=2), **_card})
+    del prof_on, feats
+
+    # NYU: DenseNet161 + NyuDecoderWave at 640x480, B=1, seeded (unscaled
+    # heads: JAX's bound is absolute)
+    gn = torch.Generator().manual_seed(12)
+    nenc = init_params(DenseNet161Encoder(), gn).to(dev).eval()
+    ndec = init_params(NyuDecoderWave(nenc.num_ch_enc), gn).to(dev).eval()
+    xn = torch.rand(1, NYU_H, NYU_W, 3, generator=gn).to(dev)
+    with torch.inference_mode():
+        nf = nenc(xn)
+        off = ndec(nf)
+        nyu_gap = disp_max_gap(polyphase_twin(ndec)(nf), off)
+    emit({"phase": "polyphase", "check": "nyu_densenet161", "batch": 1,
+          "res": [NYU_H, NYU_W], "dense_disp_gap": nyu_gap,
+          "disp_abs_max": max(float(off[("disp", s)].abs().max())
+                              for s in range(4)),
+          "tol": POLY_NYU_TOL, **_card})
+    require(nyu_gap <= POLY_NYU_TOL, ("polyphase NYU dense", nyu_gap))
 
 
 def interior(t, r: int):
@@ -4838,16 +5000,23 @@ def ddp_rank(rank: int, world: int, port: int, family: str, argv: list,
     Setup.init_state = conditioned_init
     mesh.allreduce_gradients = timed_allreduce
     warp.reset_launches()
-    summary = tool.main(argv + [
-        "--coordinator_address", f"127.0.0.1:{port}", "--num_processes",
-        str(world), "--process_id", str(rank), "--device", "cuda"],
-        logger=no_writer())
+    try:
+        summary = tool.main(argv + [
+            "--coordinator_address", f"127.0.0.1:{port}", "--num_processes",
+            str(world), "--process_id", str(rank), "--device", "cuda"],
+            logger=no_writer())
+    finally:        # the process runs the next job unpatched
+        Setup.train_step, Setup.eval_step = train_step, eval_step
+        Setup.init_state = init_state
+        mesh.allreduce_gradients = allreduce
     clock["main_returned"] = time.time()
     rec["launches"] = dict(warp.launches)
     rec["summary"] = summary
     rec["params"] = _to_cpu(_named_params(held["state"]))
     rec["stats"] = _to_cpu(_bn_stats(held["state"]))
     torch.save(rec, out)
+    held.clear()
+    torch.cuda.empty_cache()
 
 
 def _free_port() -> int:
@@ -4857,28 +5026,43 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ddp_ranks(family: str, argv: list, tmp: str) -> list:
-    """DDP_RANKS processes of ddp_rank on the one card (gloo: the ranks
-    share it), each with its own log; a rank that fails or outlasts
-    DDP_TIMEOUT fails the phase (the others are killed), and every failed
-    rank's log ends the message. Returns the ranks' records and the
-    launch's wall seconds."""
+def rank_jobs(rank: int, world: int, jobs: list) -> None:
+    """One rank process of phases 21 and 22: each job in turn, ("ddp",
+    family, argv, port, out) through ddp_rank, then ("spatial", port, out)
+    through spatial_rank, each on a process group of its own (the
+    training CLIs build and close theirs); one import for all of them."""
+    for job in jobs:
+        if job[0] == "ddp":
+            ddp_rank(rank, world, job[3], job[1], job[2], job[4])
+        else:
+            spatial_rank(rank, world, job[1], job[2])
+
+
+def run_rank_jobs(jobs: list, tmp: str, while_running=None):
+    """DDP_RANKS processes of rank_jobs on the one card (gloo: the ranks
+    share it), each with its own log; while_running() runs in this
+    process meanwhile. A rank that fails or outlasts DDP_TIMEOUT fails
+    the phase (the others are killed), and every failed rank's log ends
+    the message. Returns ({job's out name: the ranks' records}, what
+    while_running returned); each record's "timeline_s" holds its marks
+    in seconds from the launch."""
     import torch
-    port = _free_port()
     procs, logs = [], []
-    t0 = time.perf_counter()
     started = time.time()
+    extra = None
     try:
         for r in range(DDP_RANKS):
-            out = os.path.join(tmp, f"{family}_rank{r}.pt")
+            mine = [(*job[:-1], os.path.join(tmp, f"{job[-1]}_rank{r}.pt"))
+                    for job in jobs]
             code = (f"import sys; sys.path.insert(0, {REPO!r}); "
-                    f"import chip_smoke; chip_smoke.ddp_rank({r}, "
-                    f"{DDP_RANKS}, {port}, {family!r}, {argv!r}, {out!r})")
-            logs.append(open(os.path.join(tmp, f"{family}_rank{r}.log"),
-                             "w+"))
+                    f"import chip_smoke; chip_smoke.rank_jobs({r}, "
+                    f"{DDP_RANKS}, {mine!r})")
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", code], cwd=REPO, stdout=logs[-1],
                 stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL))
+        if while_running is not None:
+            extra = while_running()
         deadline = time.time() + DDP_TIMEOUT
         for p in procs:
             p.wait(timeout=max(deadline - time.time(), 1))
@@ -4887,7 +5071,6 @@ def run_ddp_ranks(family: str, argv: list, tmp: str) -> list:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    seconds = time.perf_counter() - t0
     failed = []
     for r, (p, log) in enumerate(zip(procs, logs)):
         log.seek(0)
@@ -4896,15 +5079,18 @@ def run_ddp_ranks(family: str, argv: list, tmp: str) -> list:
         if p.returncode != 0:
             failed.append(f"rank {r} exited with {p.returncode}:\n"
                           f"{text[-2500:]}")
-    require(not failed, f"ddp {family}: " + "\n".join(failed))
-    recs = [torch.load(os.path.join(tmp, f"{family}_rank{r}.pt"),
-                       weights_only=False) for r in range(DDP_RANKS)]
-    for rec in recs:    # seconds from the launch to each mark
-        c = rec["clock"]
-        rec["timeline_s"] = {
-            k: ([t - started for t in c[k]] if isinstance(c[k], list)
-                else c[k] - started) for k in c}
-    return recs, seconds
+    require(not failed, "rank jobs: " + "\n".join(failed))
+    recs = {}
+    for job in jobs:
+        recs[job[-1]] = [torch.load(os.path.join(tmp, f"{job[-1]}_rank{r}.pt"),
+                                    weights_only=False)
+                         for r in range(DDP_RANKS)]
+        for rec in recs[job[-1]]:    # seconds from the launch to each mark
+            c = rec["clock"]
+            rec["timeline_s"] = {
+                k: ([t - started for t in c[k]] if isinstance(c[k], list)
+                    else c[k] - started) for k in c}
+    return recs, extra
 
 
 def _global_inputs(parts: list, dev) -> list:
@@ -5144,12 +5330,11 @@ def ddp_launcher(dev, root: str, tmp: str) -> None:
           "loss": summary["losses"][0]["loss"], "seconds": seconds})
 
 
-def ddp_family(family: str, argv: list, dev, tmp: str) -> dict:
-    """Two ranks, the one-rank reference, the float64 gradient, the
-    checks; returns rank 0's K3 launches."""
+def ddp_check(family: str, argv: list, recs: list, dev) -> dict:
+    """The one-rank reference and the checks of one family's two-rank
+    run; returns rank 0's K3 launches."""
     import numpy as np
     import torch
-    recs, seconds = run_ddp_ranks(family, argv, tmp)
     for rec in recs:
         require(all(np.isfinite(v) for s in rec["steps"]
                     for v in s["losses"].values()), (family, "losses"))
@@ -5157,29 +5342,274 @@ def ddp_family(family: str, argv: list, dev, tmp: str) -> dict:
                 (family, "ranks' K3 launches", rec["launches"]))
     ref = ddp_reference(family, argv, recs, dev)
     torch.cuda.empty_cache()
-    ddp_compare(family, recs, ref, seconds)
+    # the job's wall: its start in rank 0 to main's return there
+    t = recs[0]["timeline_s"]
+    ddp_compare(family, recs, ref, t["main_returned"] - t["entered"])
     return recs[0]["launches"]
 
 
 def phase_ddp(dev, root: str, tmp: str):
     """Data-parallel training on the one card (module docstring, phase
-    21). Returns K3's launches per rank of the KITTI run."""
+    21), and phase 22's spatial forwards in the same two rank processes
+    after it. Returns K3's launches per rank of the KITTI run and the
+    spatial path's launches per rank."""
     import torch
     from wavelet_monodepth_tpu_torch.data import synth
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()        # the ranks' memory is the card's too
-    launches = ddp_family("kitti", train_argv(
-        root, os.path.join(tmp, "ddp_log")), dev, tmp)
+    zip_path = os.path.join(tmp, "ddp_nyu.zip")
+    synth.fabricate_nyu(zip_path, n_train=DDP_NYU_FRAMES)
+    argv = {"kitti": train_argv(root, os.path.join(tmp, "ddp_log")),
+            "nyu": ddp_nyu_argv(zip_path, os.path.join(tmp, "ddp_nyu_log"))}
+    jobs = [("ddp", family, argv[family], _free_port(), family)
+            for family in ("kitti", "nyu")]
+    jobs.append(("spatial", _free_port(), "spatial"))
+    recs, refs = run_rank_jobs(jobs, tmp,
+                               while_running=lambda: spatial_references(dev))
+    launches = ddp_check("kitti", argv["kitti"], recs["kitti"], dev)
     # per rank: 5 forward + 4 backward per step, 5 forward for validation
     require(launches == {"banded_warp_fwd": 5 * 4, "banded_warp_bwd": 4 * 3},
             ("K3 launches per rank", launches))
     ddp_launcher(dev, root, tmp)
-    zip_path = os.path.join(tmp, "ddp_nyu.zip")
-    synth.fabricate_nyu(zip_path, n_train=DDP_NYU_FRAMES)
-    ddp_family("nyu", ddp_nyu_argv(zip_path, os.path.join(
-        tmp, "ddp_nyu_log")), dev, tmp)
+    ddp_check("nyu", argv["nyu"], recs["nyu"], dev)
     emit({"phase": "ddp", "seconds": time.perf_counter() - t_phase})
-    return launches
+    return launches, spatial_check(dev, refs, recs["spatial"])
+
+
+# --- phase 22: spatial ------------------------------------------------------
+
+SPATIAL_RANKS = 2
+SPATIAL_SEED = 4
+SPATIAL_THRESH = 0.05
+SPATIAL_DISP_LIMIT = 1e-5      # tests/test_spatial.py's limit
+SPATIAL_CALLS = 3              # timed forwards per case in each rank
+# KITTI R18 at the published HR size, B=1: dense, and sparse at 0.05 on
+# xla, pallas (K1), pallas2d (K4) and compact (K5/K6, compact_cap 1.0 as
+# phase 5 holds it to xla)
+SPATIAL_CASES = {
+    "dense": {},
+    "sparse_xla": {"thresh_ratio": SPATIAL_THRESH, "use_pallas": "xla"},
+    "sparse_pallas": {"thresh_ratio": SPATIAL_THRESH,
+                      "use_pallas": "pallas"},
+    "sparse_pallas2d": {"thresh_ratio": SPATIAL_THRESH,
+                        "use_pallas": "pallas2d"},
+    "sparse_compact": {"thresh_ratio": SPATIAL_THRESH,
+                       "use_pallas": "compact", "compact_cap": 1.0},
+}
+# a case run under another case's own threshold masks (mask_override):
+# compact's border ring (COMPACT_RING) feeds its threshold other values
+# there, so it takes xla's masks, as phase 5 holds it to xla
+SPATIAL_MASKS_FROM = {"sparse_compact": "sparse_xla"}
+# the kernels each case launches, counted per rank
+SPATIAL_KERNELS = {"sparse_pallas": ("conv3x3_tile_sparse",),
+                   "sparse_pallas2d": ("conv3x3_tile_sparse_2d",),
+                   "sparse_compact": ("band_gather", "block_scatter")}
+
+
+def spatial_image():
+    import torch
+    g = torch.Generator().manual_seed(SPATIAL_SEED)
+    return torch.rand(1, R50_H, R50_W, 3, generator=g)
+
+
+def spatial_kwargs(name: str, outs: dict) -> dict:
+    """The decoder's arguments of case `name`, under the masks of the
+    earlier case SPATIAL_MASKS_FROM names (its output in `outs`)."""
+    kw = SPATIAL_CASES[name]
+    if name in SPATIAL_MASKS_FROM:
+        kw = {**kw, "mask_override":
+              raw_masks_of(outs[SPATIAL_MASKS_FROM[name]])}
+    return kw
+
+
+def kernel_launches(reset: bool = False) -> dict:
+    """K1/K4's and K5/K6's launch counts (set to 0 first with reset)."""
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
+    if reset:
+        tsc.reset_launches()
+        bio.reset_launches()
+    return {**tsc.launches, **bio.launches}
+
+
+def spatial_rank(rank: int, world: int, port: int, out: str) -> None:
+    """Phase 22 in one rank (a job of rank_jobs): the seeded KITTI R18 at
+    1024x320 in bands through mesh.spatial_forward, each case once with
+    the kernels' counts from 0 around it, then SPATIAL_CALLS timed
+    forwards after a barrier; its outputs in full height, its launches,
+    ms per forward, scatter faults and wall clock marks to `out`."""
+    clock = {"entered": time.time()}
+    import torch
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from wavelet_monodepth_tpu_torch.ops import blockio as bio
+    from wavelet_monodepth_tpu_torch.parallel import mesh
+    clock["imported"] = time.time()
+    dev = torch.device("cuda", 0)
+    mesh.initialize_distributed(f"127.0.0.1:{port}", world, rank, dev)
+    m = mesh.make_mesh(1, world)
+    enc, dec = build_models(dev, seed=SPATIAL_SEED)
+    band = mesh.shard_spatial(m, spatial_image().to(dev))
+    rec = {"band_rows": band.shape[1], "backend":
+           torch.distributed.get_backend(), "cases": {}, "launches": {},
+           "ms": {}}
+    clock["ready"] = time.time()
+    outs = {}
+    for name in SPATIAL_CASES:
+        kw = spatial_kwargs(name, outs)
+        fwd = mesh.spatial_forward(m, lambda img, kw=kw: dec(enc(img), **kw))
+        kernel_launches(reset=True)
+        got = outs[name] = fwd(band)
+        torch.cuda.synchronize()
+        rec["launches"][name] = kernel_launches()
+        rec["cases"][name] = _to_cpu(got)
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(SPATIAL_CALLS):
+            fwd(band)
+        torch.cuda.synchronize()
+        rec["ms"][name] = (time.perf_counter() - t0) * 1e3 / SPATIAL_CALLS
+    rec["scatter_faults"] = bio.scatter_faults(dev)
+    clock["done"] = time.time()
+    rec["clock"] = clock
+    torch.save(rec, out)
+    mesh.shutdown()
+
+
+def spatial_references(dev) -> dict:
+    """The one-card forward of every case on the same seeded weights and
+    image, its launches, and the B=2 floor: the dense disparity of the
+    image in a batch of two (cuDNN may pick other algorithms per shape,
+    as it may per band) against B=1."""
+    import torch
+    enc, dec = build_models(dev, seed=SPATIAL_SEED)
+    x = spatial_image().to(dev)
+    refs = {"enc": enc, "dec": dec, "x": x, "out": {}, "launches": {}}
+    with torch.inference_mode():
+        feats = enc(x)
+        refs["feats"] = feats
+        for name in SPATIAL_CASES:
+            kw = spatial_kwargs(name, refs["out"])
+            kernel_launches(reset=True)
+            refs["out"][name] = dec(feats, **kw)
+            torch.cuda.synchronize()
+            refs["launches"][name] = kernel_launches()
+        two = dec(enc(torch.cat([x, x])))
+        refs["floor"] = max(float((two[("disp", s)][:1]
+                                   - refs["out"]["dense"][("disp", s)])
+                                  .abs().max()) for s in range(4))
+    return refs
+
+
+def spatial_vs_xla(ours: dict, refs: dict, kw: dict) -> dict:
+    """A kernel case's rank output held to the one-card xla answer under
+    phase 5's contract: disp within TOL (compact away from its
+    COMPACT_RING), masks equal but for near ties (xla rerun under ours'
+    masks), xla's op counts, no overflow ("ok")."""
+    import torch
+    ring = COMPACT_RING if kw["use_pallas"] == "compact" else \
+        dict.fromkeys(range(4), 0)
+    with torch.inference_mode():
+        ref, flips = near_tie_reference(
+            ours, refs["out"]["sparse_xla"], SPATIAL_THRESH,
+            lambda raw: refs["dec"](refs["feats"], mask_override=raw,
+                                    **SPATIAL_CASES["sparse_xla"]))
+    gap = max(float(interior(ours[("disp", s)] - ref[("disp", s)],
+                             ring[s]).abs().max()) for s in range(4))
+    overflow = {s: int(ours[("overflow", s)]) for s in range(3)
+                if ("overflow", s) in ours}
+    ops_equal = torch.equal(ours[("total_ops", -1)], ref[("total_ops", -1)])
+    return {"disp_gap": gap, "mask_flips": flips, "total_ops_equal":
+            ops_equal, "overflow": overflow, "border_ring_px": ring,
+            "tol": TOL, "ok": gap <= TOL and ops_equal
+            and not any(overflow.values())}
+
+
+def spatial_check(dev, refs: dict, recs: list) -> dict:
+    """Phase 22's checks and lines: the ranks' records (spatial_rank)
+    against the one-card references (spatial_references), each kernel
+    case also against the one-card xla answer (spatial_vs_xla). Returns
+    one rank's launches of K1, K4, K5 and K6."""
+    import torch
+    enc, dec, feats = refs["enc"], refs["dec"], refs["feats"]
+
+    def one_card(kw):
+        def run():
+            with torch.inference_mode():
+                dec(enc(refs["x"]), **kw)
+        return run
+    one_ms = time_variants({name: one_card(spatial_kwargs(name, refs["out"]))
+                            for name in SPATIAL_CASES}, iters=10)
+    gate = max(SPATIAL_DISP_LIMIT, 3 * refs["floor"])
+    for rec in recs:
+        require(rec["backend"] == "gloo", ("spatial backend", rec["backend"]))
+        require(rec["band_rows"] == R50_H // SPATIAL_RANKS, rec["band_rows"])
+        require(rec["scatter_faults"] == 0, ("spatial scatter faults",
+                                             rec["scatter_faults"]))
+    for name, kw in SPATIAL_CASES.items():
+        ref0 = refs["out"][name]
+        if name in SPATIAL_MASKS_FROM:
+            # the one-card forward under the masks the ranks took
+            with torch.inference_mode():
+                ref0 = dec(feats, **spatial_kwargs(name, {
+                    SPATIAL_MASKS_FROM[name]:
+                    {k: v.to(dev) for k, v in
+                     recs[0]["cases"][SPATIAL_MASKS_FROM[name]].items()}}))
+        row = {"phase": "spatial", "case": name, "ranks": SPATIAL_RANKS,
+               "backend": "gloo", "res": [R50_H, R50_W], "batch": 1,
+               "band_rows": recs[0]["band_rows"], "disp_gaps": [],
+               "lh1_gaps": [], "mask_flips": [], "total_ops_equal": [],
+               "disp_limit": SPATIAL_DISP_LIMIT, "floor_b2": refs["floor"],
+               "gate": gate, "vs_one_card_xla": [], "launches_per_rank":
+               [rec["launches"][name] for rec in recs],
+               "launches_one_card": refs["launches"][name],
+               "ms_two_ranks": [rec["ms"][name] for rec in recs],
+               "ms_one_card": one_ms[name]}
+        for rec in recs[1:]:
+            require(all(torch.equal(rec["cases"][name][k],
+                                    recs[0]["cases"][name][k])
+                        for k in recs[0]["cases"][name]),
+                    ("spatial: the ranks' outputs differ", name))
+        for rec in recs:
+            ours = {k: v.to(dev) for k, v in rec["cases"][name].items()}
+            require(set(ours) == set(ref0), ("spatial keys", name))
+            ref = ref0
+            if "thresh_ratio" in kw:
+                with torch.inference_mode():
+                    ref, flips = near_tie_reference(
+                        ours, ref0, SPATIAL_THRESH,
+                        lambda raw, kw=kw: dec(feats, mask_override=raw,
+                                               **kw))
+                row["mask_flips"].append(flips)
+                row["total_ops_equal"].append(torch.equal(
+                    ours[("total_ops", -1)], ref[("total_ops", -1)]))
+            for s in range(4):
+                require(ours[("disp", s)].shape == ref[("disp", s)].shape,
+                        ("spatial disp shape", name, s))
+                require(bool(torch.isfinite(ours[("disp", s)]).all()),
+                        ("spatial finite disp", name, s))
+            row["disp_gaps"].append(disp_max_gap(ours, ref))
+            k = ("wavelets", 1, "LH")
+            row["lh1_gaps"].append(float((ours[k] - ref[k]).abs().max()))
+            if name in SPATIAL_KERNELS:
+                row["vs_one_card_xla"].append(spatial_vs_xla(ours, refs, kw))
+        emit({**row, **_card})
+        require(max(row["disp_gaps"]) <= gate, ("spatial disp", row))
+        require(all(row["total_ops_equal"]), ("spatial total_ops", row))
+        require(all(r["ok"] for r in row["vs_one_card_xla"]),
+                ("spatial kernel case vs xla", row))
+        for kern in SPATIAL_KERNELS.get(name, ()):
+            n = refs["launches"][name][kern]
+            require(n > 0 and all(rec["launches"][name][kern] == n
+                                  for rec in recs),
+                    ("spatial launches", name, kern, row))
+    emit({"phase": "spatial", "rank_timelines_s":
+          [rec["timeline_s"] for rec in recs], **_card})
+    refs.clear()
+    torch.cuda.empty_cache()
+    return {kern: recs[0]["launches"][name][kern]
+            for name, kerns in SPATIAL_KERNELS.items() for kern in kerns}
 
 
 def ratio(timed: dict, a: str, b: str):
@@ -5203,6 +5633,7 @@ def main():
     phase_contracts(dev, enc, dec)
     phase_contracts_r50(dev)
     no_scatter_faults(dev, "contracts")
+    phase_polyphase(dev, enc, dec)
     launches.update(phase_bf16_serving(dev, enc, dec))
     no_scatter_faults(dev, "bf16_serving")
     encb, decb = bf16_copies(enc, dec)
@@ -5282,7 +5713,7 @@ def main():
         phase_native(dev, eval_root, folder18)
         phase_serving_tools(dev, eval_root, folder18,
                             os.path.join(tmp, EVAL_CONFIGS[1][0]), tmp)
-        ddp_launches = phase_ddp(dev, root, tmp)
+        ddp_launches, spatial_launches = phase_ddp(dev, root, tmp)
     # ms: one K3 launch at (12, 192, 640, 3) (backward: the training
     # path's, no source-row pass); launches: the train main path's;
     # launches_kitti_pose: the M+S train main path's (phase 14);
@@ -5301,6 +5732,12 @@ def main():
     # sparse forward on its backend, at the 5% operating point
     for entry, k in zip(kernels, KERNELS):
         entry.update(nyu[k])
+    # launches_spatial: one rank's of one spatial forward (phase 22): K1 on
+    # pallas, K4 on pallas2d, K5 / K6 on compact
+    for entry in kernels:
+        key = entry["name"].split(" via ")[-1]
+        if key in spatial_launches:
+            entry["launches_spatial"] = spatial_launches[key]
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -297,8 +297,18 @@ def test_layers_match_jax(backend, masked):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(jax_model, port_model):
+    """An unknown depth raises. use_polyphase, which raised before the
+    fold was ported, now runs: its dense decode equals JAX's with the
+    flag (tests/test_torch_port_polyphase.py covers the rest)."""
     with pytest.raises(ValueError, match="num_layers"):
         ResnetEncoder(20)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KittiWaveletDecoder((64, 64, 128, 256, 512), use_polyphase=True)
+    _, dec = port_model
+    folded = KittiWaveletDecoder(dec.num_ch_enc, use_polyphase=True).eval()
+    folded.load_state_dict(dec.state_dict(), strict=True)
+    feats = [jnp.asarray(f) for f in jax_model["feats"]]
+    ref = JDecoder(num_ch_enc=j_num_ch_enc(18), use_polyphase=True).apply(
+        jax_model["dv"], feats)
+    with torch.no_grad():
+        ours = folded(_feats_t(jax_model))
+    _assert_outputs(ours, ref, atol=1e-5)

@@ -319,7 +319,7 @@ def test_bf16_backends_reaching_the_kernel_raise(features):
         dw(tb, thresh_ratio=0.05, use_pallas=True)
 
 
-def test_factory_and_options_match_jax():
+def test_factory_and_options_match_jax(features):
     import dataclasses
 
     from wavelet_monodepth_tpu.utils.config import NyuOptions as JOptions
@@ -350,5 +350,15 @@ def test_factory_and_options_match_jax():
         factory.make_nyu_decoder(CH, NyuOptions(use_wavelets=True,
                                                 use_sparse=True,
                                                 use_224=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tdec.NyuDecoderWave(CH, use_polyphase=True)
+    # use_polyphase, which raised before the fold was ported, now runs:
+    # the dense decode equals JAX's with the flag (1e-4 as the dense parity
+    # above; tests/test_torch_port_polyphase.py covers the rest)
+    jd, dv, _ = decoder_pair("wave", features)
+    folded = _load(tdec.NyuDecoderWave(CH, use_polyphase=True),
+                   ti.state_dicts_from_jax(None, dv)[1])
+    ref = jdec.NyuDecoderWave(num_ch_enc=CH, use_polyphase=True).apply(
+        dv, [jnp.asarray(f) for f in features])
+    ours = _port_out(folded, features)
+    assert set(ours) == set(ref)
+    for k in ref:
+        _close(ours[k].numpy(), ref[k], what=k)

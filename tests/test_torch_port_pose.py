@@ -192,8 +192,18 @@ def test_baseline_decoder_matches_jax(nets):
     for k in ref:
         np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]),
                                    rtol=0, atol=1e-5, err_msg=str(k))
-    with pytest.raises(NotImplementedError, match="use_polyphase"):
-        DepthDecoder(j_num_ch_enc(18), use_polyphase=True)
+    # use_polyphase, which raised before the fold was ported, now runs and
+    # equals JAX's fold on the same weights
+    folded = DepthDecoder(j_num_ch_enc(18), use_polyphase=True)
+    folded.load_state_dict(dec.state_dict(), strict=True)
+    ref = JDepthDecoder(num_ch_enc=j_num_ch_enc(18),
+                        use_polyphase=True).apply(
+        nets["bdv"], [jnp.asarray(f) for f in feats])
+    with torch.no_grad():
+        ours = folded([_t(f) for f in feats])
+    for k in ref:
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]),
+                                   rtol=0, atol=1e-5, err_msg=str(k))
 
 
 # --- the bridge --------------------------------------------------------------

@@ -290,9 +290,16 @@ def test_options_flag_for_flag():
 
 
 def _baseline_polyphase():
+    """use_polyphase runs since the fold was ported (tests/
+    test_torch_port_polyphase.py); under a spatial layout it raises."""
     from wavelet_monodepth_tpu_torch.models.decoders_kitti import \
-        DepthDecoder
-    DepthDecoder((64, 64, 128, 256, 512), use_polyphase=True)
+        KittiWaveletDecoder
+    from wavelet_monodepth_tpu_torch.parallel import spatial_hints
+    feats = [torch.zeros(1, 32 // 2 ** i, 48 // 2 ** i, c)
+             for i, c in enumerate((64, 64, 128, 256, 512))]
+    dec = KittiWaveletDecoder((64, 64, 128, 256, 512), use_polyphase=True)
+    with spatial_hints.active(spatial_hints.Layout(2, 0)):
+        dec(feats)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -304,8 +311,8 @@ def _baseline_polyphase():
 def test_unported_features_raise(kw, match):
     """What the port does not run raises: the options JAX cannot run
     either ("shared" pose nets, MobileNetV2's ImageNet start) and the
-    TPU-only polyphase upconv. (Data parallelism is ported:
-    tests/test_torch_port_ddp.py.)"""
+    polyphase upconv under a spatial layout. (Data parallelism is
+    ported: tests/test_torch_port_ddp.py.)"""
     with pytest.raises(NotImplementedError, match=match):
         if callable(kw):
             kw()

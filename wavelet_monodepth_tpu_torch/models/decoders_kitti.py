@@ -24,9 +24,27 @@ neg heads' 3x3); "capacity" per-conv top-K tile compaction
 6 + 2 launches per sparse scale) and "sites" whole-stage site compaction
 (`ops/sites.py`). `compact_cap` is the capacity ratio of the three
 compacted backends; their dropped tiles or sites are ("overflow", s).
-`use_polyphase` is not ported. In bfloat16 (a fully cast model, as
-`tools/infer.py --bfloat16` builds it) every backend but "pallas" and
-"pallas2d" runs, as in JAX; those two raise.
+`use_polyphase` folds upsample + upconv_i_1 into per-phase 2x2 convs at
+low resolution (`ops/convops.upconv1_polyphase`), as JAX does: always in
+the dense scales, in the sparse scales on "xla" only. In bfloat16 (a
+fully cast model, as `tools/infer.py --bfloat16` builds it) every
+backend but "pallas" and "pallas2d" runs, as in JAX; those two raise.
+
+Under a spatial layout (`parallel/spatial_hints.py`, entered by
+`mesh.spatial_forward`) the wavelet decoder runs on each rank's band of
+rows, as GSPMD partitions JAX's: "xla" and the dense scales in bands
+with halos (reflect at the image border), a scale whose height is too
+short to band whole on every rank and sliced where it upsamples into a
+banded one, the threshold's max and min and the mask counts reduced
+over the bands, the shape counts taken at the global height (so
+("total_ops", -1) and the masks equal one process's). On the kernel
+backends ("pallas", "pallas2d", "capacity", "compact", "sites") each
+sparse scale gathers its inputs, runs its kernels once on the whole
+image on every rank and keeps the band: GSPMD replicates JAX's Pallas
+calls the same way. The kernels still run on the card, and a failure
+raises. The outputs carry their global heights (`spatial_hints.mark`).
+The baseline DepthDecoder and `use_polyphase` raise there
+(`spatial_hints.refuse`).
 """
 
 from __future__ import annotations
@@ -41,9 +59,10 @@ from ..ops import sparse as sp
 from ..ops.capacity import conv_capacity_overflow
 from ..ops.compact import (compact_wave_stage, default_tile_shape,
                            stage_capacity_overflow)
-from ..ops.convops import conv1x1, conv3x3
+from ..ops.convops import conv1x1, conv3x3, upconv1_polyphase
 from ..ops.sites import site_wave_stage, stage_site_overflow
 from ..ops.wavelets import haar_idwt
+from ..parallel import spatial_hints
 from .layers import (Conv3x3, ConvBlock, WaveConv, check_backend_dtype,
                      sparse_backend, upsample_concat)
 
@@ -52,8 +71,17 @@ Tensor = torch.Tensor
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
 
-def _idwt(yl: Tensor, yh: Tensor) -> Tensor:
-    return haar_idwt(yl, yh[..., 0:1], yh[..., 1:2], yh[..., 2:3])
+def _idwt(yl: Tensor, yh: Tensor, rows: Optional[int] = None) -> Tensor:
+    """haar_idwt; under a spatial layout `rows` is the output's global
+    height, and a whole output of a banded height keeps this rank's band
+    (JAX's `_idwt` hints its sharding the same way)."""
+    return spatial_hints.hint(
+        haar_idwt(yl, yh[..., 0:1], yh[..., 1:2], yh[..., 2:3]), rows)
+
+
+def _shape(x: Tensor, rows: int) -> tuple:
+    """x's NHWC shape at `rows` global rows (the op counts' shape)."""
+    return (x.shape[0], rows, *x.shape[2:])
 
 
 class DepthDecoder(nn.Module):
@@ -64,19 +92,17 @@ class DepthDecoder(nn.Module):
     Outputs ("disp", s), NHWC. The convs sit in `decoder`, an
     nn.ModuleList in the reference's order (upconv_i_0, upconv_i_1 for
     i = 4..0, then the dispconvs), so its `depth.pth` loads with
-    `strict=True`. `use_polyphase` is not ported."""
+    `strict=True`. `use_polyphase` folds upsample + upconv_i_1 where a
+    skip joins (`ops/convops.upconv1_polyphase`, zero padding)."""
 
     def __init__(self, num_ch_enc: Sequence[int],
                  scales: Sequence[int] = (0, 1, 2, 3),
                  use_skips: bool = True, use_polyphase: bool = False):
         super().__init__()
-        if use_polyphase:
-            raise NotImplementedError(
-                "use_polyphase is not ported (ROADMAP.md, Queue 1 item 7: "
-                "upconv1_polyphase is a TPU-only workaround)")
         self.num_ch_enc = tuple(num_ch_enc)
         self.scales = tuple(scales)
         self.use_skips = use_skips
+        self.use_polyphase = use_polyphase
         blocks = {}
         cin = self.num_ch_enc[-1]
         for i in range(4, -1, -1):
@@ -91,12 +117,18 @@ class DepthDecoder(nn.Module):
         self.blocks = dict(blocks)      # by name; registered via `decoder`
 
     def forward(self, features: Sequence[Tensor]) -> dict:
+        spatial_hints.refuse("DepthDecoder")
         outputs = {}
         x = features[-1]
         for i in range(4, -1, -1):
             x = self.blocks[f"upconv_{i}_0"](x)
             skip = features[i - 1] if (self.use_skips and i > 0) else None
-            x = self.blocks[f"upconv_{i}_1"](upsample_concat(x, skip))
+            if skip is not None and self.use_polyphase:
+                conv = self.blocks[f"upconv_{i}_1"].conv
+                x = upconv1_polyphase(x, skip, conv.conv.weight,
+                                      conv.conv.bias, "zero", nonlin=F.elu)
+            else:
+                x = self.blocks[f"upconv_{i}_1"](upsample_concat(x, skip))
             if i in self.scales:
                 outputs[("disp", i)] = torch.sigmoid(
                     self.blocks[f"dispconv_{i}"](x))
@@ -109,10 +141,7 @@ class KittiWaveletDecoder(nn.Module):
     def __init__(self, num_ch_enc: Sequence[int],
                  use_polyphase: bool = False):
         super().__init__()
-        if use_polyphase:
-            raise NotImplementedError(
-                "use_polyphase is not ported (ROADMAP.md, Queue 1 item 7: "
-                "upconv1_polyphase is a TPU-only workaround)")
+        self.use_polyphase = use_polyphase
         self.num_ch_enc = tuple(num_ch_enc)
         blocks = {}
         cin = self.num_ch_enc[-1]
@@ -141,6 +170,11 @@ class KittiWaveletDecoder(nn.Module):
         backends; active tiles or sites beyond it are dropped.
         mask_override: {scale i: (N, Hl, Wl, 1) raw mask} replaces the
         threshold mask at those scales (dilations still run)."""
+        if spatial_hints.current() is not None:
+            if self.use_polyphase:
+                spatial_hints.refuse("use_polyphase")
+            features = [spatial_hints.hint(f, spatial_hints.rows_of(f))
+                        for f in features]
         if thresh_ratio is None:
             return self._dense(features)
         return self._sparse(features, thresh_ratio, tuple(sparse_scales),
@@ -229,28 +263,108 @@ class KittiWaveletDecoder(nn.Module):
         return yh
 
     @staticmethod
-    def _log_coeffs(outputs: dict, s: int, yl: Tensor, yh: Tensor):
-        outputs[("wavelets", s, "LL")] = yl
-        outputs[("wavelets", s, "LH")] = yh[..., 0:1]
-        outputs[("wavelets", s, "HL")] = yh[..., 1:2]
-        outputs[("wavelets", s, "HH")] = yh[..., 2:3]
+    def _log_coeffs(outputs: dict, s: int, yl: Tensor, yh: Tensor,
+                    rows: int):
+        mark = spatial_hints.mark
+        outputs[("wavelets", s, "LL")] = mark(yl, rows)
+        outputs[("wavelets", s, "LH")] = mark(yh[..., 0:1], rows)
+        outputs[("wavelets", s, "HL")] = mark(yh[..., 1:2], rows)
+        outputs[("wavelets", s, "HH")] = mark(yh[..., 2:3], rows)
+
+    def _upconv1(self, x0: Tensor, skip: Tensor, i: int,
+                 in_mask_lo: Optional[Tensor] = None,
+                 cat_mask: Optional[Tensor] = None,
+                 out_mask: Optional[Tensor] = None) -> Tensor:
+        """upsample -> concat skip -> upconv_i_1 -> ELU (+ masks), through
+        the polyphase fold when use_polyphase is set (JAX's `_upconv1`).
+        Masked, u * m_up == upsample(x0 * dilate3(mask)) because the 5x5
+        dilation of an upsampled mask is 2x2-constant, so the caller
+        passes in_mask_lo = masks["lowres"] and cat_mask =
+        masks["upsample"] for the skip half."""
+        if self.use_polyphase:
+            conv = self.blocks[f"upconv_{i}_1"].conv
+            xu = x0 if in_mask_lo is None else x0 * in_mask_lo
+            sk = skip if cat_mask is None else skip * cat_mask
+            y = upconv1_polyphase(xu, sk, conv.conv.weight, conv.conv.bias,
+                                  "reflect", nonlin=F.elu)
+            return y if out_mask is None else y * out_mask
+        x = upsample_concat(x0, skip, out_mask=cat_mask)
+        return self.blocks[f"upconv_{i}_1"](x, out_mask=out_mask)
 
     def _dense(self, features: Sequence[Tensor]) -> dict:
         outputs = {}
         x = features[-1]
         yl = None
         for i in range(4, 0, -1):
-            x = self.blocks[f"upconv_{i}_0"](x)
-            x = self.blocks[f"upconv_{i}_1"](
-                upsample_concat(x, features[i - 1]))
-            new_yl, yh = self._coefficients(x, i, want_ll=(i == 4))
+            lo = spatial_hints.rows_of(features[i])
+            hi = spatial_hints.rows_of(features[i - 1])
+            with spatial_hints.at_rows(lo):
+                x = self.blocks[f"upconv_{i}_0"](x)
+            with spatial_hints.at_rows(hi):
+                x = self._upconv1(x, features[i - 1], i)
+                new_yl, yh = self._coefficients(x, i, want_ll=(i == 4))
             if i == 4:
                 yl = new_yl
-            self._log_coeffs(outputs, i - 1, yl, yh)
-            yl = _idwt(yl, yh)
-            outputs[("disp", i - 1)] = torch.clamp(yl / (2.0 ** (i - 1)),
-                                                   0, 1)
+            self._log_coeffs(outputs, i - 1, yl, yh, hi)
+            yl = _idwt(yl, yh, 2 * hi)
+            outputs[("disp", i - 1)] = spatial_hints.mark(
+                torch.clamp(yl / (2.0 ** (i - 1)), 0, 1), 2 * hi)
         return outputs
+
+    def _sparse_stage(self, x: Tensor, skip: Tensor, mask: Tensor,
+                      masks: dict, i: int, backend: str, compact_cap: float,
+                      lo: Optional[int], hi: Optional[int]):
+        """Sparse scale i on `backend`: (x, yh, overflow or None). `lo` /
+        `hi`: the global heights of x and of its upsample under a spatial
+        layout (None: whole tensors)."""
+        if backend in ("compact", "sites"):
+            yh, x, overflow = self._compact_stage(x, skip, mask, i,
+                                                  compact_cap, backend)
+            return x, yh, overflow
+        overflow = None
+        if backend == "capacity":
+            overflow = (
+                conv_capacity_overflow(masks["upconv0"],
+                                       capacity_ratio=compact_cap)
+                + conv_capacity_overflow(masks["upconv1"],
+                                         capacity_ratio=compact_cap)
+                + 2 * conv_capacity_overflow(masks["wavelet"],
+                                             capacity_ratio=compact_cap))
+        with spatial_hints.at_rows(lo):
+            x = self.blocks[f"upconv_{i}_0"](
+                x, in_mask=masks["lowres"], out_mask=masks["upconv0"],
+                use_pallas=backend, capacity_ratio=compact_cap)
+        with spatial_hints.at_rows(hi):
+            if backend == "xla":
+                x = self._upconv1(x, skip, i, in_mask_lo=masks["lowres"],
+                                  cat_mask=masks["upsample"],
+                                  out_mask=masks["upconv1"])
+            else:
+                x = upsample_concat(x, skip, out_mask=masks["upsample"])
+                x = self.blocks[f"upconv_{i}_1"](
+                    x, out_mask=masks["upconv1"], use_pallas=backend,
+                    capacity_ratio=compact_cap)
+            _, yh = self._coefficients(
+                x, i, want_ll=False, in_mask=masks["upconv1"],
+                out_mask=masks["wavelet"], backend=backend,
+                capacity_ratio=compact_cap)
+        return x, yh, overflow
+
+    def _whole_stage(self, x: Tensor, skip: Tensor, mask: Tensor,
+                     masks: dict, i: int, backend: str, compact_cap: float,
+                     lo: int, hi: int):
+        """`_sparse_stage` of a kernel backend under a spatial layout: the
+        inputs gathered to full height, the stage run once on the whole
+        image on every rank, its band kept."""
+        g = spatial_hints.gather
+        masks = {k: g(m, lo if k in ("lowres", "upconv0") else hi)
+                 for k, m in masks.items()}
+        with spatial_hints.at_rows(None):
+            x, yh, overflow = self._sparse_stage(
+                g(x, lo), g(skip, hi), g(mask, lo), masks, i, backend,
+                compact_cap, None, None)
+        return (spatial_hints.hint(x, hi), spatial_hints.hint(yh, hi),
+                overflow)
 
     def _sparse(self, features: Sequence[Tensor], thresh_ratio,
                 sparse_scales: tuple, use_pallas=False,
@@ -259,99 +373,95 @@ class KittiWaveletDecoder(nn.Module):
         backend = sparse_backend(use_pallas)
         x = features[-1]
         check_backend_dtype(backend, x.dtype)
+        banded = spatial_hints.current() is not None
+        at_rows, mark = spatial_hints.at_rows, spatial_hints.mark
         outputs = {}
         yl = yh = None
         # per-image op counts (N,): each image accounts like a reference
         # batch-1 run
         total_ops = x.new_zeros((x.shape[0],), dtype=torch.float32)
         for i in range(4, 0, -1):
+            # global heights: x and the mask (lo), the upsample, skip and
+            # yl (hi)
+            lo = spatial_hints.rows_of(features[i])
+            hi = spatial_hints.rows_of(features[i - 1])
             scale_ops = x.new_zeros((x.shape[0],), dtype=torch.float32)
             if i == 4:
                 mask = torch.ones_like(x[..., :1])
             elif mask_override is not None and i in mask_override:
-                mask = mask_override[i].to(x.dtype)
-                scale_ops += sp.ops_threshold(mask)
+                mask = spatial_hints.hint(mask_override[i].to(x.dtype), lo)
             else:
-                mask = sp.wavelet_threshold_mask(yl, yh, thresh_ratio)
-                scale_ops += sp.ops_threshold(mask)
-            masks = sp.stage_masks(mask)
-            scale_ops += sp.ops_dilation(mask)
+                with at_rows(hi):
+                    mask = sp.wavelet_threshold_mask(yl, yh, thresh_ratio)
+            with at_rows(lo):
+                if i != 4:
+                    scale_ops += sp.ops_threshold(mask)
+                masks = sp.stage_masks(mask)
+                scale_ops += sp.ops_dilation(mask)
 
             s = i - 1
-            outputs[("lowres_mask", s)] = masks["lowres"]
-            outputs[("upconv0_mask", s)] = masks["upconv0"]
-            outputs[("upsample_mask", s)] = masks["upsample"]
-            outputs[("upconv1_mask", s)] = masks["upconv1"]
-            outputs[("wavelet_mask", s)] = masks["wavelet"]
+            for key, rows in (("lowres", lo), ("upconv0", lo),
+                              ("upsample", hi), ("upconv1", hi),
+                              ("wavelet", hi)):
+                outputs[(f"{key}_mask", s)] = mark(masks[key], rows)
 
             skip = features[i - 1]
             ichn1 = NUM_CH_DEC[i] + skip.shape[-1]
             if i in sparse_scales and i != 4:
-                for key in ("lowres", "upconv0", "upsample", "upconv1"):
-                    scale_ops += sp.ops_mask2idxmap(masks[key])
+                with at_rows(lo):
+                    for key in ("lowres", "upconv0"):
+                        scale_ops += sp.ops_mask2idxmap(masks[key])
+                    n0 = sp.mask_count(masks["upconv0"])
+                with at_rows(hi):
+                    for key in ("upsample", "upconv1"):
+                        scale_ops += sp.ops_mask2idxmap(masks[key])
+                    n_in = sp.mask_count(masks["upconv1"])
+                    n_out = sp.mask_count(masks["wavelet"])
                 ichn0 = x.shape[-1]
+                stage = (self._whole_stage if banded and backend != "xla"
+                         else self._sparse_stage)
+                x, yh, overflow = stage(x, skip, mask, masks, i, backend,
+                                        compact_cap, lo, hi)
                 # tiles or sites dropped past the capacity: 0 = this scale
                 # matched the oracle
-                if backend in ("compact", "sites"):
-                    yh, x, outputs[("overflow", s)] = self._compact_stage(
-                        x, skip, mask, i, compact_cap, backend)
-                else:
-                    if backend == "capacity":
-                        outputs[("overflow", s)] = (
-                            conv_capacity_overflow(
-                                masks["upconv0"], capacity_ratio=compact_cap)
-                            + conv_capacity_overflow(
-                                masks["upconv1"], capacity_ratio=compact_cap)
-                            + 2 * conv_capacity_overflow(
-                                masks["wavelet"], capacity_ratio=compact_cap))
-                    x = self.blocks[f"upconv_{i}_0"](
-                        x, in_mask=masks["lowres"],
-                        out_mask=masks["upconv0"], use_pallas=backend,
-                        capacity_ratio=compact_cap)
-                    x = upsample_concat(x, skip, out_mask=masks["upsample"])
-                    x = self.blocks[f"upconv_{i}_1"](
-                        x, out_mask=masks["upconv1"], use_pallas=backend,
-                        capacity_ratio=compact_cap)
-                    _, yh = self._coefficients(
-                        x, i, want_ll=False, in_mask=masks["upconv1"],
-                        out_mask=masks["wavelet"], backend=backend,
-                        capacity_ratio=compact_cap)
-                scale_ops += sp.ops_sparse_conv3x3(
-                    sp.mask_count(masks["upconv0"]), ichn0, NUM_CH_DEC[i])
-                scale_ops += sp.ops_sparse_conv3x3(
-                    sp.mask_count(masks["upconv1"]), ichn1, NUM_CH_DEC[i])
-                n_in = sp.mask_count(masks["upconv1"])
-                n_out = sp.mask_count(masks["wavelet"])
+                if overflow is not None:
+                    outputs[("overflow", s)] = overflow
+                scale_ops += sp.ops_sparse_conv3x3(n0, ichn0, NUM_CH_DEC[i])
+                scale_ops += sp.ops_sparse_conv3x3(n_in, ichn1,
+                                                   NUM_CH_DEC[i])
                 for _ in range(2):   # pos + neg heads
                     scale_ops += sp.ops_sparse_conv1x1(
                         n_in, NUM_CH_DEC[i], NUM_CH_DEC[i])
                     scale_ops += sp.ops_sparse_conv3x3(
                         n_out, NUM_CH_DEC[i], 3)
             else:
-                scale_ops += sp.ops_dense_conv3x3(x.shape, NUM_CH_DEC[i])
-                x = self.blocks[f"upconv_{i}_0"](x)
-                ux_shape = (x.shape[0], 2 * x.shape[1], 2 * x.shape[2],
-                            ichn1)
+                scale_ops += sp.ops_dense_conv3x3(_shape(x, lo),
+                                                  NUM_CH_DEC[i])
+                with at_rows(lo):
+                    x = self.blocks[f"upconv_{i}_0"](x)
+                ux_shape = (x.shape[0], hi, 2 * x.shape[2], ichn1)
                 scale_ops += sp.ops_dense_conv3x3(ux_shape, NUM_CH_DEC[i])
-                x = self.blocks[f"upconv_{i}_1"](upsample_concat(x, skip))
                 want_ll = (i == 4)
-                new_yl, yh = self._coefficients(x, i, want_ll=want_ll)
+                with at_rows(hi):
+                    x = self._upconv1(x, skip, i)
+                    new_yl, yh = self._coefficients(x, i, want_ll=want_ll)
                 yh = yh * masks["wavelet"]
                 if want_ll:
                     yl = new_yl
                     scale_ops += sp.ops_dense_conv1x1(
-                        x.shape, NUM_CH_DEC[4], NUM_CH_DEC[4] // 4)
+                        _shape(x, hi), NUM_CH_DEC[4], NUM_CH_DEC[4] // 4)
                     scale_ops += sp.ops_dense_conv3x3(
-                        x.shape[:3] + (NUM_CH_DEC[4] // 4,), 1)
+                        (x.shape[0], hi, x.shape[2], NUM_CH_DEC[4] // 4), 1)
                 for _ in range(2):
                     scale_ops += sp.ops_dense_conv1x1(
-                        x.shape, NUM_CH_DEC[i], NUM_CH_DEC[i])
-                    scale_ops += sp.ops_dense_conv3x3(x.shape, 3)
+                        _shape(x, hi), NUM_CH_DEC[i], NUM_CH_DEC[i])
+                    scale_ops += sp.ops_dense_conv3x3(_shape(x, hi), 3)
 
-            self._log_coeffs(outputs, s, yl, yh)
-            yl = _idwt(yl, yh)
-            scale_ops += sp.ops_idwt(yl.shape)
-            outputs[("disp", s)] = torch.clamp(yl / (2.0 ** s), 0, 1)
+            self._log_coeffs(outputs, s, yl, yh, hi)
+            yl = _idwt(yl, yh, 2 * hi)
+            scale_ops += sp.ops_idwt(_shape(yl, 2 * hi))
+            outputs[("disp", s)] = mark(torch.clamp(yl / (2.0 ** s), 0, 1),
+                                        2 * hi)
             outputs[("total_ops", s)] = scale_ops
             total_ops += scale_ops
         outputs[("total_ops", -1)] = total_ops

@@ -28,7 +28,11 @@ cannot lower them there.
 JAX's documented deviations are kept: `NyuDecoderWave224` divides
 ("disp", 1) by 2 (the reference's `ll // 2` is an integer-division
 bug), and `wave_idxmap` is counted once at scale 1 (the reference counts
-it twice). `use_polyphase` (JAX's upsample + conv fold) is not ported.
+it twice). `use_polyphase` folds each UpBlock's upsample + convA into
+per-phase 2x2 convs at low resolution (`ops/convops.upconv1_polyphase`),
+on JAX's conditions: not depthwise, `use_pallas` false, and masked only
+through the low-res twin of the upsample mask. The NYU models do not run
+under a spatial layout (`parallel/spatial_hints.refuse`).
 """
 
 from __future__ import annotations
@@ -39,8 +43,10 @@ import torch
 import torch.nn as nn
 
 from ..ops import sparse as sp
+from ..ops.convops import upconv1_polyphase
 from ..ops.image import upsample_nearest2x
 from ..ops.wavelets import haar_idwt
+from ..parallel import spatial_hints
 from .layers import Conv3x3, DWConv3x3, leaky_relu_02, sparse_backend
 
 Tensor = torch.Tensor
@@ -48,13 +54,6 @@ Tensor = torch.Tensor
 
 def _f32(v) -> Tensor:
     return torch.tensor(v, dtype=torch.float32)
-
-
-def _no_polyphase(use_polyphase: bool) -> None:
-    if use_polyphase:
-        raise NotImplementedError(
-            "use_polyphase is not ported (ROADMAP.md, Queue 1 item 7: "
-            "upconv1_polyphase is a TPU-only workaround)")
 
 
 def _conv3x3(cin: int, cout: int, pad_mode: str, depthwise: bool):
@@ -76,23 +75,40 @@ def _log(outputs: dict, s: int, yl: Optional[Tensor], h: Tensor) -> None:
 
 class UpBlock(nn.Module):
     """UpSampleBlock (`NYUv2/networks/layers.py:57-67`): nearest-x2 ->
-    concat skip -> Conv3x3(pad) -> LeakyReLU(0.2), maskable."""
+    concat skip -> Conv3x3(pad) -> LeakyReLU(0.2), maskable.
+
+    With use_polyphase, not depthwise and `use_pallas` false, the
+    upsample + convA run as `upconv1_polyphase` (JAX's condition for
+    condition). Masked, upsample(x) * up_out_mask == upsample(x *
+    up_in_mask_lo) because the 5x5-dilated upsampled mask is
+    2x2-constant: the caller passes dilate3(mask) as the low-res twin,
+    and without it a masked call takes the plain composition."""
 
     def __init__(self, in_features: int, features: int,
                  pad_mode: str = "reflect", depthwise: bool = False,
                  use_polyphase: bool = False):
         super().__init__()
-        _no_polyphase(use_polyphase)
         self.depthwise = depthwise
+        self.pad_mode = pad_mode
+        self.use_polyphase = use_polyphase
         self.convA = _conv3x3(in_features, features, pad_mode, depthwise)
 
     def forward(self, x: Tensor, skip: Tensor,
                 up_out_mask: Optional[Tensor] = None,
                 out_mask: Optional[Tensor] = None,
                 in_mask: Optional[Tensor] = None, use_pallas=False,
-                capacity_ratio: float = 0.5) -> Tensor:
+                capacity_ratio: float = 0.5,
+                up_in_mask_lo: Optional[Tensor] = None) -> Tensor:
         if in_mask is not None:
             x = x * in_mask
+        if (self.use_polyphase and not self.depthwise and not use_pallas
+                and (up_out_mask is None or up_in_mask_lo is not None)):
+            conv = self.convA.conv
+            xu = x if up_in_mask_lo is None else x * up_in_mask_lo
+            sk = skip if up_out_mask is None else skip * up_out_mask
+            y = upconv1_polyphase(xu, sk, conv.weight, conv.bias,
+                                  self.pad_mode, nonlin=leaky_relu_02)
+            return y if out_mask is None else y * out_mask
         up = torch.cat([upsample_nearest2x(x), skip], dim=-1)
         if up_out_mask is not None:
             up = up * up_out_mask
@@ -136,6 +152,7 @@ class NyuDecoder(nn.Module):
         self.conv3 = _conv3x3(head_in, 1, "zero", is_depthwise)
 
     def forward(self, features: Sequence[Tensor]) -> dict:
+        spatial_hints.refuse(type(self).__name__)
         x = self.conv2(features[-1])
         for k in range(1, 5):
             x = getattr(self, f"up{k}")(x, features[-1 - k])
@@ -186,6 +203,7 @@ class NyuDecoderWave(nn.Module):
         mask_override: {sparse scale s: (N, h, w, 1) raw mask} replaces
         the threshold mask at that scale (dilations and op counts follow
         it), as the KITTI decoder's does, to decode at a chosen density."""
+        spatial_hints.refuse("NyuDecoderWave")
         if thresh_ratio is None:
             return self._dense(features)
         return self._sparse(features, thresh_ratio, use_pallas,
@@ -277,9 +295,12 @@ class NyuDecoderWave(nn.Module):
             outputs[("wavelet_mask", s)] = wavelet_mask
 
             cat_c = x.shape[-1] + skip.shape[-1]
+            # the low-res twin of conva_mask, which only the polyphase
+            # fold reads (JAX computes it in every case)
+            lo_twin = sp.dilate_mask(mask, 3) if up.use_polyphase else None
             x = up(x, skip, in_mask=up_mask, up_out_mask=conva_mask,
                    out_mask=wave_mask, use_pallas=use_pallas,
-                   capacity_ratio=capacity_ratio)
+                   capacity_ratio=capacity_ratio, up_in_mask_lo=lo_twin)
             total += sp.ops_sparse_conv3x3(
                 sp.mask_count(wave_mask), cat_c, x.shape[-1])
             h = wave(x, None, wavelet_mask, use_pallas=heads_backend)
@@ -317,6 +338,7 @@ class NyuDecoderWave224(nn.Module):
                                                  dw_waveconv))
 
     def forward(self, features: Sequence[Tensor]) -> dict:
+        spatial_hints.refuse("NyuDecoderWave224")
         outputs = {}
         x = self.up1(self.conv2(features[-1]), features[-2])
         ll = (2.0 ** 4) * self.wave1_ll(x)

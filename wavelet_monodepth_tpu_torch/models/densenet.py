@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import spatial_hints
 from .resnet import BatchNorm2d
 
 NUM_CH_ENC = (96, 96, 192, 384, 2208)
@@ -105,6 +106,7 @@ class DenseNet161Encoder(nn.Module):
         self.original_model.features = _Features()
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        spatial_hints.refuse("DenseNet161Encoder")
         if self.normalize_input:
             x = ((x - x.new_tensor(_MEAN)) / x.new_tensor(_STD))
         f = self.original_model.features

@@ -30,6 +30,7 @@ from ..ops import capacity as cap
 from ..ops import convops
 from ..ops import tile_sparse_conv as tsc
 from ..ops.image import pad2d, upsample_nearest2x
+from ..parallel import spatial_hints
 
 Tensor = torch.Tensor
 
@@ -246,8 +247,10 @@ class DWConv3x3(nn.Module):
 
 def upsample_concat(x: Tensor, skip: Optional[Tensor],
                     out_mask: Optional[Tensor] = None) -> Tensor:
-    """Nearest-x2 + optional skip concat (+ mask)."""
-    y = upsample_nearest2x(x)
+    """Nearest-x2 + optional skip concat (+ mask). Under a spatial layout
+    a whole x upsampled into the scope's banded height keeps this rank's
+    band."""
+    y = spatial_hints.hint(upsample_nearest2x(x))
     if skip is not None:
         y = torch.cat([y, skip], dim=-1)
     if out_mask is not None:

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..parallel import spatial_hints
 from .resnet import BatchNorm2d
 
 # (expand_ratio t, channels c, repeats n, stride s)
@@ -83,6 +84,7 @@ class MobileNetV2Encoder(nn.Module):
         self.features = nn.ModuleList(layers)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        spatial_hints.refuse("MobileNetV2Encoder")
         x = x.permute(0, 3, 1, 2)
         blocks = (self.features[:-1] if self.use_last_layer
                   else self.features)

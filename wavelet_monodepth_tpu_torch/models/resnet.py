@@ -33,6 +33,14 @@ of the global batch, as under JAX's data mesh: the count, sum and
 squared deviations go through the differentiable `global_sum`, so the
 gradients are the global batch's too, and the running statistics move
 alike on every rank. Every BN of the port's networks is this class.
+
+The convs and the max pool go through `spatial_hints.conv2d` /
+`max_pool2d`, which run them on the whole tensor outside a spatial
+layout. Under one (`parallel/spatial_hints.py`, entered by
+`mesh.spatial_forward`) each rank runs its band of rows between its
+halos (zero or -inf at the image border), and every block's output and
+every feature carries its global height. Inference only: a train-mode BN
+raises there.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel import mesh
+from ..parallel import mesh, spatial_hints
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -52,6 +60,7 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        spatial_hints.refuse("train-mode BatchNorm (spatial inference only)")
         if mesh.world_size() > 1:
             return self._global_batch_forward(x)
         with torch.no_grad():
@@ -98,6 +107,13 @@ def num_ch_enc(num_layers: int) -> tuple[int, ...]:
     return (64, 64, 128, 256, 512)
 
 
+def _shortcut(block: nn.Module, x: torch.Tensor, rows: int) -> torch.Tensor:
+    if block.downsample is None:
+        return x
+    conv, bn = block.downsample
+    return bn(spatial_hints.conv2d(conv, x, rows)[0])
+
+
 def _check_layers(num_layers: int) -> None:
     if num_layers not in _BLOCKS:
         raise ValueError(f"ResNet{num_layers}: num_layers must be one of "
@@ -118,10 +134,11 @@ class BasicBlock(nn.Module):
                 BatchNorm2d(cout, eps=1e-5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + identity)
+        rows = spatial_hints.rows_of(x, 2)
+        y, r = spatial_hints.conv2d(self.conv1, x, rows)
+        y, r = spatial_hints.conv2d(self.conv2, F.relu(self.bn1(y)), r)
+        y = self.bn2(y)
+        return spatial_hints.mark(F.relu(y + _shortcut(self, x, rows)), r)
 
 
 class Bottleneck(nn.Module):
@@ -144,11 +161,12 @@ class Bottleneck(nn.Module):
                 BatchNorm2d(cout, eps=1e-5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + identity)
+        rows = spatial_hints.rows_of(x, 2)
+        y, r = spatial_hints.conv2d(self.conv1, x, rows)
+        y, r = spatial_hints.conv2d(self.conv2, F.relu(self.bn1(y)), r)
+        y, r = spatial_hints.conv2d(self.conv3, F.relu(self.bn2(y)), r)
+        y = self.bn3(y)
+        return spatial_hints.mark(F.relu(y + _shortcut(self, x, rows)), r)
 
 
 class _ResNet(nn.Module):
@@ -187,13 +205,18 @@ class ResnetEncoder(nn.Module):
                 f"ResnetEncoder(num_input_images={self.num_input_images}) "
                 f"expects {3 * self.num_input_images} input channels, got "
                 f"{x.shape[-1]}")
+        rows = spatial_hints.rows_of(x)
+        x = spatial_hints.hint(x, rows)
         if self.normalize_input:
             x = (x - 0.45) / 0.225
         e = self.encoder
-        x = F.relu(e.bn1(e.conv1(x.permute(0, 3, 1, 2))))
+        x, rows = spatial_hints.conv2d(e.conv1, x.permute(0, 3, 1, 2), rows)
+        x = spatial_hints.mark(F.relu(e.bn1(x)), rows)
         feats = [x]
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = spatial_hints.max_pool2d(x, rows, 3, 2, 1)[0]
         for layer in (e.layer1, e.layer2, e.layer3, e.layer4):
             x = layer(x)
             feats.append(x)
-        return [f.permute(0, 2, 3, 1) for f in feats]
+        return [spatial_hints.mark(f.permute(0, 2, 3, 1),
+                                   spatial_hints.rows_of(f, 2))
+                for f in feats]

@@ -7,7 +7,9 @@ and returns NHWC and runs the NCHW torch op on a permuted view
 `F.grid_sample(padding_mode="border", align_corners=False)`: the JAX
 package's gather warp and its TPU-only batch-chunked take
 (`ops/image.py:98-204`, an XLA operand-size workaround) have no CUDA
-counterpart to port.
+counterpart to port. Under a spatial layout's `at_rows` scope,
+`pad2d` and `max_pool_same` take a band's rows from its neighbours
+(`parallel/spatial_hints.py`).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..parallel import mesh
+from ..parallel import mesh, spatial_hints
 
 _PAD_MODES = {"reflect": "reflect", "zero": "constant",
               "replicate": "replicate"}
@@ -33,7 +35,14 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 def pad2d(x: torch.Tensor, pad: int = 1, mode: str = "reflect"
           ) -> torch.Tensor:
     """Spatial padding of an NHWC tensor; mode is 'reflect', 'zero' or
-    'replicate' (torch ReflectionPad2d / ZeroPad2d / ReplicationPad2d)."""
+    'replicate' (torch ReflectionPad2d / ZeroPad2d / ReplicationPad2d).
+    A band of a spatial layout takes its `pad` halo rows from its
+    neighbours and pads in `mode` at the image border only."""
+    band = spatial_hints.band_of(x)
+    if band is not None:
+        x = band.pad_rows(x, pad, pad, mode)
+        return _nhwc(F.pad(_nchw(x), (pad, pad, 0, 0),
+                           mode=_PAD_MODES[mode]))
     return _nhwc(F.pad(_nchw(x), (pad, pad, pad, pad),
                        mode=_PAD_MODES[mode]))
 
@@ -86,7 +95,13 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int,
 
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
     """k x k max pool, stride 1, SAME padding. `F.max_pool2d` pads with
-    -inf, so zero masks stay zero at the borders."""
+    -inf, so zero masks stay zero at the borders; a band of a spatial
+    layout takes its k // 2 halo rows from its neighbours."""
+    band = spatial_hints.band_of(x)
+    if band is not None:
+        x = band.pad_rows(x, k // 2, k // 2, "-inf")
+        return _nhwc(F.max_pool2d(_nchw(x), k, stride=1,
+                                  padding=(0, k // 2)))
     return _nhwc(F.max_pool2d(_nchw(x), k, stride=1, padding=k // 2))
 
 

@@ -12,6 +12,12 @@ tile-sparse kernel (`ops/tile_sparse_conv.py`) is held to. Counts that
 depend on masks are float32 (N,) tensors on the masks' device; counts of
 shapes alone are 0-dim float32 CPU tensors, which add to a device tensor
 as a scalar, with no copy to the device.
+
+Under a spatial layout (`parallel/spatial_hints.py`) a mask or a yl may
+be a band of the height that the caller's `at_rows` scope names: the
+threshold's max and min and `mask_count` then reduce across the bands,
+`stage_masks` dilates with halos, and the mask counters count the
+global shape.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial_hints
 from .convops import conv1x1, conv3x3
 from .image import dilate_mask, upsample_nearest2x
 
@@ -29,24 +36,32 @@ Tensor = torch.Tensor
 
 def wavelet_threshold_mask(yl: Tensor, yh: Tensor, thresh_ratio) -> Tensor:
     """{0,1} mask (N, H, W, 1): max |yh| over bands > (max - min of yl,
-    per image) * thresh_ratio. yl may be at any resolution."""
-    thresh = (yl.amax(dim=(1, 2, 3), keepdim=True)
-              - yl.amin(dim=(1, 2, 3), keepdim=True)) * thresh_ratio
+    per image) * thresh_ratio. yl may be at any resolution (a band of the
+    scope's height: the max and min reduce over every band)."""
+    hi = spatial_hints.reduce_rows(yl.amax(dim=(1, 2, 3), keepdim=True),
+                                   yl, "max")
+    lo = spatial_hints.reduce_rows(yl.amin(dim=(1, 2, 3), keepdim=True),
+                                   yl, "min")
+    thresh = (hi - lo) * thresh_ratio
     return (yh.abs().amax(dim=-1, keepdim=True) > thresh).to(yl.dtype)
 
 
 def stage_masks(mask: Tensor) -> dict[str, Tensor]:
     """Dilated per-op masks of one sparse decoder scale: lowres (3x3, low
     res), upconv0 (5x5, low res), upsample (5x5 of the upsampled mask),
-    upconv1 (3x3 of the upsampled mask), wavelet (the upsampled mask)."""
-    umask = upsample_nearest2x(mask)
-    return {
-        "lowres": dilate_mask(mask, 3),
-        "upconv0": dilate_mask(mask, 5),
-        "upsample": dilate_mask(umask, 5),
-        "upconv1": dilate_mask(umask, 3),
-        "wavelet": umask,
-    }
+    upconv1 (3x3 of the upsampled mask), wavelet (the upsampled mask).
+    Under a spatial layout `mask` is of the scope's height, the upsampled
+    masks of twice it."""
+    lowres, upconv0 = dilate_mask(mask, 3), dilate_mask(mask, 5)
+    with spatial_hints.upsampled():
+        umask = spatial_hints.hint(upsample_nearest2x(mask))
+        return {
+            "lowres": lowres,
+            "upconv0": upconv0,
+            "upsample": dilate_mask(umask, 5),
+            "upconv1": dilate_mask(umask, 3),
+            "wavelet": umask,
+        }
 
 
 def masked_conv3x3(x: Tensor, w: Tensor, b: Tensor | None,
@@ -119,24 +134,30 @@ def compute_density(outputs: dict, per_image: bool = False) -> Tensor:
 
 
 # Analytic op counters: the reference's accounting, reproduced exactly.
+# The mask counters count a band at its global height.
 
 def _scalar(v: float) -> Tensor:
     return torch.tensor(v, dtype=torch.float32)
 
 
+def _hw(mask: Tensor) -> int:
+    _, h, w = spatial_hints.global_shape(mask)[:3]
+    return h * w
+
+
 def ops_mask2idxmap(mask: Tensor) -> Tensor:
     """`mask2idxmap` cost: H*W of the mask."""
-    return _scalar(mask.shape[1] * mask.shape[2])
+    return _scalar(_hw(mask))
 
 
 def ops_threshold(mask: Tensor) -> Tensor:
     """Threshold compare cost: 3*H*W."""
-    return _scalar(3 * mask.shape[1] * mask.shape[2])
+    return _scalar(3 * _hw(mask))
 
 
 def ops_dilation(mask: Tensor) -> Tensor:
     """Maxpool dilation cost."""
-    hw = mask.shape[1] * mask.shape[2]
+    hw = _hw(mask)
     return _scalar(25 * hw + 25 * 4 * hw)
 
 
@@ -178,5 +199,7 @@ def ops_idwt(yl_shape) -> Tensor:
 
 def mask_count(mask: Tensor) -> Tensor:
     """Active sites per image, (N,), accumulated in float32 (a bf16 sum
-    loses integer exactness past 256 sites)."""
-    return mask.float().sum(dim=(1, 2, 3))
+    loses integer exactness past 256 sites); summed over the bands when
+    `mask` is a band."""
+    return spatial_hints.reduce_rows(mask.float().sum(dim=(1, 2, 3)), mask,
+                                     "sum")

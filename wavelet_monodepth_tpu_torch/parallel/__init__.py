@@ -1,1 +1,2 @@
-"""Data-parallel training over torch.distributed (`mesh.py`)."""
+"""Multi-rank execution over torch.distributed: data-parallel training
+and height-banded (spatial) inference (`mesh.py`, `spatial_hints.py`)."""

@@ -37,16 +37,26 @@ one card, with the multi-host flags of its rank. The backend is NCCL
 when every rank has a card of its own, else gloo (the CPU, or ranks
 sharing a card, which NCCL refuses); each rank prints its choice.
 
-Left out, with no PyTorch counterpart: `make_mesh`, the NamedSharding
-helpers (`batch_sharding`, `stacked_batch_sharding`, `replicated`),
-`put_global`, `shard_batch` and `replicate`: a rank's tensors are its
-rows, and the parameters start from one seed on every rank and move by
-the same all-reduced gradient. Not ported yet: the spatial functions
-(`spatial_sharding`, `shard_spatial`, `jit_spatial_forward`).
+Spatial inference (`mesh.py:197-242`). `make_mesh(data, spatial)` lays
+the ranks out as JAX lays its devices (rank = d * spatial + s) and
+builds each data row's spatial group with `dist.new_group`;
+`shard_spatial` gives a rank its band of an image (under a data axis,
+of its data row's images); `spatial_forward` is
+`jit_spatial_forward`: the forward runs on the band under
+`spatial_hints.active` (the halo exchanges, gathers and cross-band
+reductions GSPMD inserted are there) and every output comes back in full
+height on every rank of the group. Inference only, as in JAX.
+
+Left out, with no PyTorch counterpart: the NamedSharding helpers
+(`batch_sharding`, `stacked_batch_sharding`, `replicated`,
+`spatial_sharding`), `put_global`, `shard_batch` and `replicate`: a
+rank's tensors are its rows, and the parameters start from one seed on
+every rank and move by the same all-reduced gradient.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import functools
 import json
@@ -60,6 +70,8 @@ from typing import Iterable, Sequence
 
 import torch
 import torch.distributed as dist
+
+from . import spatial_hints
 
 # how long a rank waits for the others, at start-up and in a collective
 TIMEOUT = datetime.timedelta(minutes=30)
@@ -459,3 +471,79 @@ def write_rank_result(summary: dict) -> None:
     if path:
         with open(path, "w") as f:
             json.dump(summary, f)
+
+
+# ---------------------------------------------------------------------------
+# spatial (image-height) inference
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The data x spatial layout of the ranks (JAX's `Mesh(("data",
+    "spatial"))`): this rank is row `data_index` (its images) and column
+    `layout.index` (its band) of a `data` x `spatial` grid."""
+
+    data: int
+    spatial: int
+    data_index: int
+    layout: spatial_hints.Layout
+
+
+def make_mesh(data: int | None = None, spatial: int = 1) -> Mesh:
+    """Lay the world's ranks out as data x spatial, rank = d * spatial + s
+    (JAX's reshape of its devices), and build every data row's spatial
+    group. Every rank must call it, with the same arguments and in the
+    same order as every other group it builds."""
+    world = world_size()
+    if data is None:
+        data = world // spatial
+    if data * spatial != world:
+        raise ValueError(f"mesh {data}x{spatial} needs {data * spatial} "
+                         f"ranks, the process group has {world}")
+    me = rank()
+    mine = None
+    if dist.is_initialized():
+        for d in range(data):
+            group = dist.new_group(list(range(d * spatial,
+                                              (d + 1) * spatial)))
+            if d == me // spatial:
+                mine = group
+    return Mesh(data, spatial, me // spatial,
+                spatial_hints.Layout(spatial, me % spatial, mine))
+
+
+def shard_spatial(mesh: Mesh, x):
+    """This rank's band of an NHWC image (or of each in a dict, list or
+    tuple), tagged with its global height. Under a data axis each data
+    row passes its own images (JAX's P("data", "spatial"))."""
+    if isinstance(x, dict):
+        return {k: shard_spatial(mesh, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(shard_spatial(mesh, v) for v in x)
+    with spatial_hints.active(mesh.layout):
+        return spatial_hints.hint(x, x.shape[1])
+
+
+def _gathered(layout: spatial_hints.Layout, out):
+    """Every tagged band in `out` (a tensor, dict, list or tuple) in full
+    height; everything else as it is."""
+    if isinstance(out, dict):
+        return {k: _gathered(layout, v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_gathered(layout, v) for v in out)
+    if isinstance(out, torch.Tensor) and out.dim() == 4:
+        return spatial_hints.gather(out, spatial_hints.rows_of(out))
+    return out
+
+
+def spatial_forward(mesh: Mesh, forward):
+    """`forward(*args)` on this rank's bands (`shard_spatial`), returning
+    its outputs in full height on every rank of the spatial group: JAX's
+    `jit_spatial_forward` with replicated outputs. Runs without autograd
+    (inference only: a train-mode BN raises under it). Outputs are
+    gathered as the modules return them (tagged); every rank of the group
+    must call it alike."""
+
+    def call(*args, **kwargs):
+        with torch.no_grad(), spatial_hints.active(mesh.layout):
+            return _gathered(mesh.layout, forward(*args, **kwargs))
+    return call
