@@ -332,16 +332,28 @@ failure raises and exits non-zero:
      TOL (compact away from COMPACT_RING), masks but for near ties, xla's
      total_ops, no overflow. K1, K4, K5 and K6 launched in each rank as
      often as on one card; no scatter fault in either rank. ms per
-     forward of each rank and of one card, information only.
+     forward of each rank and of one card, information only. Then the
+     same ranks run NYU DenseNet161 + NyuDecoderWave (phase 12's seeded
+     model, in metres) at 640x480, B=1, on 240-row bands: dense, and
+     sparse at 0.05 on False, True (K1 x4), pallas2d (K4 x2 + K1 x2) and
+     capacity (K1 x2, capacity_ratio 1.0), each counted once, timed
+     once; held to the one-card forward as above (its own B=2 floor;
+     computed after the ranks end: beside phase 21's NYU training it
+     left the ranks short of card memory), each kernel case also to the
+     one-card masked-dense answer under phase 12's NYU contract (masks
+     but for near ties, op counts, every output within TOL relative to
+     max(1, max |ref|)), with phase 12's K1 / K4 launches in each rank
+     and on one card.
 
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
 summary (K1/K4 with the NYU path's `launches_nyu` and `*_nyu` B=8 sums,
 K3 with the M+S run's `launches_kitti_pose` and the 1024x320 B=6 run's
 `launches_kitti_hr` and `*_kitti_hr` per-launch times, one rank's
-`launches_ddp` of phase 21's two-rank run, and K1, K4, K5 and K6 with
-one rank's `launches_spatial` of a phase 22 forward) and the last is
-{"ok": true, "device": {...}}.
+`launches_ddp` of phase 21's two-rank run, K1, K4, K5 and K6 with
+one rank's `launches_spatial` of a phase 22 forward, and K1 and K4 with
+one rank's `launches_spatial_nyu` over phase 22's NYU cases) and the
+last is {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
 """
@@ -2919,29 +2931,36 @@ def nyu_frames(n: int, seed: int = 0):
     return rgb, depth, edges
 
 
-def nyu_model(path: str, seed: int = 10) -> None:
-    """A seeded DenseNet161 + NyuDecoderWave written as a reference NYU
-    model.pth, its heads rescaled so the raw output looks like depth in
-    cm: the LL head's weights x3000 and bias +300 give ~1-3.5 m with a
-    metre of structure from the image, the wave heads' weights x250 give
-    partial masks at threshold 0.05 (a random init gives ~0.01 cm of
-    structure, all-active masks and, in bf16, a constant depth)."""
+def nyu_modules(seed: int = 10, cm_per_unit: float = 1.0):
+    """A seeded DenseNet161 + NyuDecoderWave (on the CPU, train mode), its
+    heads rescaled so the raw output looks like depth in cm (in metres
+    with cm_per_unit=100): the LL head's weights x3000 and bias +300 give
+    ~1-3.5 m with a metre of structure from the image, the wave heads'
+    weights x250 give partial masks at threshold 0.05 (a random init
+    gives ~0.01 cm of structure, all-active masks and, in bf16, a
+    constant depth). The unit divides the LL and wave heads' scales
+    alike, so the masks stay close to the cm model's."""
     import torch
     from wavelet_monodepth_tpu_torch.models.decoders_nyu import \
         NyuDecoderWave
     from wavelet_monodepth_tpu_torch.models.densenet import \
         DenseNet161Encoder
     from wavelet_monodepth_tpu_torch.models.layers import init_params
-    from wavelet_monodepth_tpu_torch.tools import torch_import as ti
     g = torch.Generator().manual_seed(seed)
     enc = init_params(DenseNet161Encoder(), g)
     dec = init_params(NyuDecoderWave(enc.num_ch_enc), g)
     with torch.no_grad():
-        dec.wave1_ll.conv.weight.mul_(3000.0)
-        dec.wave1_ll.conv.bias.add_(300.0)
+        dec.wave1_ll.conv.weight.mul_(3000.0 / cm_per_unit)
+        dec.wave1_ll.conv.bias.add_(300.0 / cm_per_unit)
         for head in (dec.wave1, dec.wave2, dec.wave3):
-            head.conv.weight.mul_(250.0)
-    ti.save_nyu_model_pth(path, enc, dec)
+            head.conv.weight.mul_(250.0 / cm_per_unit)
+    return enc, dec
+
+
+def nyu_model(path: str, seed: int = 10) -> None:
+    """nyu_modules(seed) written as a reference NYU model.pth."""
+    from wavelet_monodepth_tpu_torch.tools import torch_import as ti
+    ti.save_nyu_model_pth(path, *nyu_modules(seed))
 
 
 def nyu_forward(model: str, dev, backend=False, bf16: bool = False,
@@ -5404,12 +5423,44 @@ SPATIAL_MASKS_FROM = {"sparse_compact": "sparse_xla"}
 SPATIAL_KERNELS = {"sparse_pallas": ("conv3x3_tile_sparse",),
                    "sparse_pallas2d": ("conv3x3_tile_sparse_2d",),
                    "sparse_compact": ("band_gather", "block_scatter")}
+# NYU: phase 12's seeded DenseNet161 + NyuDecoderWave in metres at the
+# published 640x480, B=1, over the same ranks: dense, and sparse at
+# NYU_THRESH on False (masked dense), True (K1 x4), "pallas2d" (K4 x2 +
+# K1 x2) and "capacity" (K1 x2; capacity_ratio 1.0 drops no tile, as
+# phase 12 holds it to the masked-dense answer); each case once counted,
+# then SPATIAL_NYU_CALLS timed forwards
+SPATIAL_NYU_SEED = 10
+SPATIAL_NYU_CM_PER_UNIT = 100.0
+SPATIAL_NYU_CALLS = 1
+SPATIAL_NYU_CASES = {
+    "nyu_dense": {},
+    "nyu_sparse_xla": {"thresh_ratio": NYU_THRESH, "use_pallas": False},
+    "nyu_sparse_pallas": {"thresh_ratio": NYU_THRESH, "use_pallas": True},
+    "nyu_sparse_pallas2d": {"thresh_ratio": NYU_THRESH,
+                            "use_pallas": "pallas2d"},
+    "nyu_sparse_capacity": {"thresh_ratio": NYU_THRESH,
+                            "use_pallas": "capacity",
+                            "capacity_ratio": 1.0},
+}
+# each kernel case's K1 / K4 launches per forward (phase 12's)
+SPATIAL_NYU_LAUNCHES = {f"nyu_sparse_{b}": n for b, n in NYU_LAUNCHES.items()}
 
 
 def spatial_image():
     import torch
     g = torch.Generator().manual_seed(SPATIAL_SEED)
     return torch.rand(1, R50_H, R50_W, 3, generator=g)
+
+
+def spatial_nyu_image(dev):
+    """Phase 12's network input of one seeded synthetic NYU frame."""
+    return nyu_input(nyu_frames(1, seed=SPATIAL_NYU_SEED)[0], dev)
+
+
+def spatial_nyu_models(dev):
+    """The NYU cases' DenseNet161 + NyuDecoderWave, eval, on `dev`."""
+    enc, dec = nyu_modules(SPATIAL_NYU_SEED, SPATIAL_NYU_CM_PER_UNIT)
+    return enc.to(dev).eval(), dec.to(dev).eval()
 
 
 def spatial_kwargs(name: str, outs: dict) -> dict:
@@ -5436,8 +5487,10 @@ def spatial_rank(rank: int, world: int, port: int, out: str) -> None:
     """Phase 22 in one rank (a job of rank_jobs): the seeded KITTI R18 at
     1024x320 in bands through mesh.spatial_forward, each case once with
     the kernels' counts from 0 around it, then SPATIAL_CALLS timed
-    forwards after a barrier; its outputs in full height, its launches,
-    ms per forward, scatter faults and wall clock marks to `out`."""
+    forwards after a barrier; then the NYU cases alike, with
+    SPATIAL_NYU_CALLS timed forwards; its outputs in full height, its
+    launches, ms per forward, scatter faults and wall clock marks to
+    `out`."""
     clock = {"entered": time.time()}
     import torch
     sys.path.insert(0, REPO)
@@ -5471,6 +5524,27 @@ def spatial_rank(rank: int, world: int, port: int, out: str) -> None:
         torch.cuda.synchronize()
         rec["ms"][name] = (time.perf_counter() - t0) * 1e3 / SPATIAL_CALLS
     rec["scatter_faults"] = bio.scatter_faults(dev)
+    clock["kitti_done"] = time.time()
+    del enc, dec, outs
+    torch.cuda.empty_cache()        # the other rank's memory is the card's too
+    enc, dec = spatial_nyu_models(dev)
+    band = mesh.shard_spatial(m, spatial_nyu_image(dev))
+    rec["nyu_band_rows"] = band.shape[1]
+    for name, kw in SPATIAL_NYU_CASES.items():
+        fwd = mesh.spatial_forward(m, lambda img, kw=kw: dec(enc(img), **kw))
+        kernel_launches(reset=True)
+        got = fwd(band)
+        torch.cuda.synchronize()
+        rec["launches"][name] = kernel_launches()
+        rec["cases"][name] = _to_cpu(got)
+        del got
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(SPATIAL_NYU_CALLS):
+            fwd(band)
+        torch.cuda.synchronize()
+        rec["ms"][name] = ((time.perf_counter() - t0) * 1e3
+                           / SPATIAL_NYU_CALLS)
     clock["done"] = time.time()
     rec["clock"] = clock
     torch.save(rec, out)
@@ -5502,6 +5576,28 @@ def spatial_references(dev) -> dict:
     return refs
 
 
+def spatial_nyu_references(dev, refs: dict) -> None:
+    """spatial_references for the NYU cases, into `refs`. It runs after
+    the ranks have ended: beside phase 21's NYU training in the ranks,
+    its f32 DenseNet161 forwards (cuDNN's FFT workspaces) left the ranks
+    short of card memory."""
+    import torch
+    enc, dec = spatial_nyu_models(dev)
+    x = spatial_nyu_image(dev)
+    refs["nyu"] = {"enc": enc, "dec": dec, "x": x}
+    with torch.inference_mode():
+        feats = refs["nyu"]["feats"] = enc(x)
+        for name, kw in SPATIAL_NYU_CASES.items():
+            kernel_launches(reset=True)
+            refs["out"][name] = dec(feats, **kw)
+            torch.cuda.synchronize()
+            refs["launches"][name] = kernel_launches()
+        two = dec(enc(torch.cat([x, x])))
+        refs["nyu_floor"] = max(float(
+            (two[("disp", s)][:1] - refs["out"]["nyu_dense"][("disp", s)])
+            .abs().max()) for s in range(4))
+
+
 def spatial_vs_xla(ours: dict, refs: dict, kw: dict) -> dict:
     """A kernel case's rank output held to the one-card xla answer under
     phase 5's contract: disp within TOL (compact away from its
@@ -5526,11 +5622,142 @@ def spatial_vs_xla(ours: dict, refs: dict, kw: dict) -> dict:
             and not any(overflow.values())}
 
 
+def nyu_near_tie_reference(ours, ref, thresh, rerun):
+    """near_tie_reference for NyuDecoderWave: its sparse scale s (1, 0)
+    thresholds ll = 2^(s+1) disp_(s+1) against scale s+1's coefficients;
+    where a mask of `ours` differs from `ref`'s, the reference reruns
+    under ours' masks and each of ours' mask pixels must equal that
+    rerun's own decision or lie within 1e-5 of the threshold, relative
+    to max(1, max |ll|)."""
+    import torch
+    flips = {s: int((ours[("wavelet_mask", s)]
+                     != ref[("wavelet_mask", s)]).sum()) for s in (1, 0)}
+    if any(flips.values()):
+        raw = {s: ours[("wavelet_mask", s)][:, ::2, ::2].contiguous()
+               for s in (1, 0)}
+        ref = rerun(raw)
+        for s in (1, 0):
+            ll = ref[("disp", s + 1)] * 2.0 ** (s + 1)
+            yh = torch.cat([ref[("wavelets", s + 1, b)]
+                            for b in ("LH", "HL", "HH")], -1)
+            t = (ll.amax(dim=(1, 2, 3)) - ll.amin(dim=(1, 2, 3))) * thresh
+            peak = yh.abs().amax(-1)
+            decided = (peak > t[:, None, None]).float()
+            margin = (peak - t[:, None, None]).abs()
+            near = 1e-5 * max(1.0, float(ll.abs().max()))
+            require(bool(((raw[s][..., 0] == decided) | (margin < near))
+                         .all()),
+                    f"NYU mask differs away from the threshold at scale {s}")
+    return ref, flips
+
+
+def spatial_nyu_vs_xla(ours: dict, refs: dict) -> dict:
+    """A NYU kernel case's rank output held to the one-card masked-dense
+    answer under phase 12's NYU contract: masks equal but for near ties
+    (the masked-dense forward rerun under ours' masks), its op counts,
+    every float output within TOL relative to max(1, max |ref|)
+    (nyu_gap)."""
+    import torch
+    n = refs["nyu"]
+    with torch.inference_mode():
+        ref, flips = nyu_near_tie_reference(
+            ours, refs["out"]["nyu_sparse_xla"], NYU_THRESH,
+            lambda raw: n["dec"](n["feats"], mask_override=raw,
+                                 **SPATIAL_NYU_CASES["nyu_sparse_xla"]))
+    gap = nyu_gap(ours, ref)
+    ops_equal = torch.equal(ours[("total_ops", -1)], ref[("total_ops", -1)])
+    return {"gap_rel": gap, "mask_flips": flips, "total_ops_equal":
+            ops_equal, "tol": TOL, "ok": gap <= TOL and ops_equal}
+
+
+def spatial_nyu_check(dev, refs: dict, recs: list) -> dict:
+    """Phase 22's NYU lines: each case of the ranks against the one-card
+    forward on the same weights (disp within SPATIAL_DISP_LIMIT or 3x the
+    B=2 floor; masks equal but for near ties, op counts equal), each
+    kernel case also against the one-card masked-dense answer
+    (spatial_nyu_vs_xla) and with phase 12's K1 / K4 launches per rank.
+    Returns one rank's K1 / K4 launches over the NYU cases."""
+    import torch
+    spatial_nyu_references(dev, refs)
+    n = refs["nyu"]
+    gate = max(SPATIAL_DISP_LIMIT, 3 * refs["nyu_floor"])
+    one_ms = {}
+    with torch.inference_mode():
+        for name, kw in SPATIAL_NYU_CASES.items():   # one untimed call
+            for _ in range(2):
+                t0 = time.perf_counter()
+                n["dec"](n["enc"](n["x"]), **kw)
+                torch.cuda.synchronize()
+            one_ms[name] = (time.perf_counter() - t0) * 1e3
+    launches = dict.fromkeys(KERNELS, 0)
+    for name, kw in SPATIAL_NYU_CASES.items():
+        ref0 = refs["out"][name]
+        row = {"phase": "spatial", "case": name, "model": "nyu_densenet161",
+               "ranks": SPATIAL_RANKS, "backend": "gloo",
+               "res": [NYU_H, NYU_W], "batch": 1,
+               "band_rows": recs[0]["nyu_band_rows"], "disp_gaps": [],
+               "mask_flips": [], "total_ops_equal": [],
+               "disp_limit": SPATIAL_DISP_LIMIT,
+               "floor_b2": refs["nyu_floor"], "gate": gate,
+               "vs_one_card_masked_dense": [], "launches_per_rank":
+               [rec["launches"][name] for rec in recs],
+               "launches_one_card": refs["launches"][name],
+               "ms_two_ranks": [rec["ms"][name] for rec in recs],
+               "ms_one_card": one_ms[name]}
+        if "thresh_ratio" in kw:
+            row["density"] = [float(ref0[("wavelet_mask", s)].mean())
+                              for s in (1, 0)]
+        for rec in recs[1:]:
+            require(all(torch.equal(rec["cases"][name][k],
+                                    recs[0]["cases"][name][k])
+                        for k in recs[0]["cases"][name]),
+                    ("spatial: the ranks' outputs differ", name))
+        for rec in recs:
+            require(rec["nyu_band_rows"] == NYU_H // SPATIAL_RANKS,
+                    rec["nyu_band_rows"])
+            ours = {k: v.to(dev) for k, v in rec["cases"][name].items()}
+            require(set(ours) == set(ref0), ("spatial keys", name))
+            ref = ref0
+            if "thresh_ratio" in kw:
+                with torch.inference_mode():
+                    ref, flips = nyu_near_tie_reference(
+                        ours, ref0, NYU_THRESH,
+                        lambda raw, kw=kw: n["dec"](
+                            n["feats"], mask_override=raw, **kw))
+                row["mask_flips"].append(flips)
+                row["total_ops_equal"].append(torch.equal(
+                    ours[("total_ops", -1)], ref[("total_ops", -1)]))
+            for s in range(4):
+                require(ours[("disp", s)].shape == ref[("disp", s)].shape,
+                        ("spatial disp shape", name, s))
+                require(bool(torch.isfinite(ours[("disp", s)]).all()),
+                        ("spatial finite disp", name, s))
+            row["disp_gaps"].append(disp_max_gap(ours, ref))
+            if name in SPATIAL_NYU_LAUNCHES:
+                row["vs_one_card_masked_dense"].append(
+                    spatial_nyu_vs_xla(ours, refs))
+        emit({**row, **_card})
+        require(max(row["disp_gaps"]) <= gate, ("spatial NYU disp", row))
+        require(all(row["total_ops_equal"]), ("spatial NYU total_ops", row))
+        require(all(r["ok"] for r in row["vs_one_card_masked_dense"]),
+                ("spatial NYU kernel case vs masked dense", row))
+        want = SPATIAL_NYU_LAUNCHES.get(name, dict.fromkeys(KERNELS, 0))
+        for kern in KERNELS:
+            require(refs["launches"][name][kern] == want[kern]
+                    and all(rec["launches"][name][kern] == want[kern]
+                            for rec in recs),
+                    ("spatial NYU launches", name, kern, row))
+            launches[kern] += recs[0]["launches"][name][kern]
+    return launches
+
+
 def spatial_check(dev, refs: dict, recs: list) -> dict:
     """Phase 22's checks and lines: the ranks' records (spatial_rank)
     against the one-card references (spatial_references), each kernel
-    case also against the one-card xla answer (spatial_vs_xla). Returns
-    one rank's launches of K1, K4, K5 and K6."""
+    case also against the one-card xla answer (spatial_vs_xla), then the
+    NYU cases (spatial_nyu_check). Returns one rank's launches of K1, K4,
+    K5 and K6 over the KITTI cases, and of K1 and K4 over the NYU cases
+    under "<kernel>_nyu"."""
     import torch
     enc, dec, feats = refs["enc"], refs["dec"], refs["feats"]
 
@@ -5604,12 +5831,15 @@ def spatial_check(dev, refs: dict, recs: list) -> dict:
             require(n > 0 and all(rec["launches"][name][kern] == n
                                   for rec in recs),
                     ("spatial launches", name, kern, row))
+    nyu = spatial_nyu_check(dev, refs, recs)
     emit({"phase": "spatial", "rank_timelines_s":
           [rec["timeline_s"] for rec in recs], **_card})
     refs.clear()
     torch.cuda.empty_cache()
-    return {kern: recs[0]["launches"][name][kern]
-            for name, kerns in SPATIAL_KERNELS.items() for kern in kerns}
+    launches = {kern: recs[0]["launches"][name][kern]
+                for name, kerns in SPATIAL_KERNELS.items() for kern in kerns}
+    launches.update({f"{kern}_nyu": k for kern, k in nyu.items()})
+    return launches
 
 
 def ratio(timed: dict, a: str, b: str):
@@ -5733,11 +5963,14 @@ def main():
     for entry, k in zip(kernels, KERNELS):
         entry.update(nyu[k])
     # launches_spatial: one rank's of one spatial forward (phase 22): K1 on
-    # pallas, K4 on pallas2d, K5 / K6 on compact
+    # pallas, K4 on pallas2d, K5 / K6 on compact; launches_spatial_nyu: one
+    # rank's over the NYU sparse forwards (K1: 4 + 2 + 2, K4: 2)
     for entry in kernels:
         key = entry["name"].split(" via ")[-1]
         if key in spatial_launches:
             entry["launches_spatial"] = spatial_launches[key]
+        if key + "_nyu" in spatial_launches:
+            entry["launches_spatial_nyu"] = spatial_launches[key + "_nyu"]
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -24,6 +24,7 @@ from wavelet_monodepth_tpu_torch.data import kitti as tkitti
 from wavelet_monodepth_tpu_torch.data import loader as tloader
 from wavelet_monodepth_tpu_torch.data import splits as tsplits
 from wavelet_monodepth_tpu_torch.utils import maskgen
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W = 64, 96

@@ -66,6 +66,7 @@ from wavelet_monodepth_tpu.train.kitti import KittiTrainSetup as JSetup
 from wavelet_monodepth_tpu.utils.config import KittiOptions as JOptions
 from wavelet_monodepth_tpu_torch.parallel import mesh
 from wavelet_monodepth_tpu_torch.tools import train_kitti, train_nyu
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

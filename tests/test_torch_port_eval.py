@@ -60,6 +60,7 @@ from wavelet_monodepth_tpu_torch.tools import evaluate_depth as ted
 from wavelet_monodepth_tpu_torch.tools import export_gt_depth as texport
 from wavelet_monodepth_tpu_torch.tools import torch_import as ti
 from wavelet_monodepth_tpu_torch.utils.config import parse_kitti_args
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W = 64, 96

@@ -34,6 +34,7 @@ from wavelet_monodepth_tpu_torch.models.resnet import ResnetEncoder
 from wavelet_monodepth_tpu_torch.tools import fetch_pretrained as tfp
 from wavelet_monodepth_tpu_torch.tools import golden_check as tgc
 from wavelet_monodepth_tpu_torch.tools import torch_import as ti
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 _LINE = re.compile(r"^(\[ OK \]|\[ -- \]|\[FAIL\]) (WMD_\w+)")
 

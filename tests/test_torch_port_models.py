@@ -29,6 +29,7 @@ from wavelet_monodepth_tpu_torch.models.resnet import ResnetEncoder
 from wavelet_monodepth_tpu_torch.ops import tile_sparse_conv as tsc
 from wavelet_monodepth_tpu_torch.tools import torch_import as ti
 from wavelet_monodepth_tpu_torch.utils import maskgen as tmg
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W, N = 64, 96, 2

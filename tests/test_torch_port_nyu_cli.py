@@ -26,6 +26,7 @@ from wavelet_monodepth_tpu_torch.train.nyu import NyuTrainSetup
 from wavelet_monodepth_tpu_torch.utils import checkpoint as ckpt
 from wavelet_monodepth_tpu_torch.utils import device as device_rule
 from wavelet_monodepth_tpu_torch.utils.config import NyuOptions
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 TRAIN = ["--encoder_type", "mobilenet_light", "--use_wavelets", "--use_224",

@@ -33,6 +33,7 @@ from wavelet_monodepth_tpu_torch.data import synth as tsynth
 from wavelet_monodepth_tpu_torch.ops import augment as taug
 from wavelet_monodepth_tpu_torch.ops.resize import resize_area_u8
 from wavelet_monodepth_tpu_torch.train import losses_nyu as tlosses
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 

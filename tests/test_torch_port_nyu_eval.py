@@ -40,6 +40,7 @@ from wavelet_monodepth_tpu.utils.precision import cast_floats as jcast
 from wavelet_monodepth_tpu.utils.precision import wrap_forward_bf16 as jwrap
 from wavelet_monodepth_tpu_torch.eval import nyu_eval as tne
 from wavelet_monodepth_tpu_torch.tools import evaluate_nyu as tev
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(2)
 N_FRAMES = 3

@@ -54,6 +54,7 @@ from wavelet_monodepth_tpu_torch.tools import train_nyu
 from wavelet_monodepth_tpu_torch.train.nyu import NyuTrainSetup as TSetup
 from wavelet_monodepth_tpu_torch.train.nyu import depth_norm
 from wavelet_monodepth_tpu_torch.utils.config import NyuOptions as TOptions
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W, N = 64, 96, 2

@@ -59,6 +59,7 @@ from wavelet_monodepth_tpu_torch.tools import precompute_depth_hints as thints
 from wavelet_monodepth_tpu_torch.tools import torch_import as ti
 from wavelet_monodepth_tpu_torch.train import losses_kitti as tl
 from wavelet_monodepth_tpu_torch.utils.config import KittiOptions as TOptions
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W, N = 64, 96, 2

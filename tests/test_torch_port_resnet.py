@@ -28,6 +28,7 @@ from wavelet_monodepth_tpu_torch.models.resnet import ResnetEncoder
 from wavelet_monodepth_tpu_torch.models.resnet import num_ch_enc
 from wavelet_monodepth_tpu_torch.tools import infer as tinfer
 from wavelet_monodepth_tpu_torch.tools import torch_import as ti
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W, N = 64, 96, 2

@@ -37,6 +37,7 @@ from wavelet_monodepth_tpu_torch.data import native_loader as tnl
 from wavelet_monodepth_tpu_torch.tools import export_serving as es
 from wavelet_monodepth_tpu_torch.tools import serve_artifact as sa
 from wavelet_monodepth_tpu_torch.tools import torch_import as ti
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W = 64, 96

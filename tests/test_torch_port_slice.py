@@ -29,6 +29,7 @@ from wavelet_monodepth_tpu.tools import torch_import as jti
 from wavelet_monodepth_tpu.utils import maskgen as jmg
 from wavelet_monodepth_tpu_torch.tools import infer as tinfer
 from wavelet_monodepth_tpu_torch.utils import maskgen as tmg
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -13,6 +13,7 @@ import pytest
 from test_torch_port_data import write_mount
 from wavelet_monodepth_tpu_torch.tools import soak_kitti
 from wavelet_monodepth_tpu_torch.utils.logging import TrainTimer
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

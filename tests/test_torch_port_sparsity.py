@@ -42,6 +42,7 @@ from wavelet_monodepth_tpu_torch.tools import plot_sparsity_curve as tplot
 from wavelet_monodepth_tpu_torch.tools import profile_model as tpm
 from wavelet_monodepth_tpu_torch.tools import sparsity_sweep as tss
 from wavelet_monodepth_tpu_torch.tools import torch_import as ti
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W, B = 64, 96, 2

@@ -50,6 +50,7 @@ from wavelet_monodepth_tpu.models.resnet import ResnetEncoder as JEncoder
 from wavelet_monodepth_tpu.models.resnet import num_ch_enc as j_num_ch_enc
 from wavelet_monodepth_tpu_torch.parallel import spatial_hints as sh
 from wavelet_monodepth_tpu_torch.tools import torch_import as ti
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -311,7 +312,10 @@ def test_layout_rule_and_refusals():
     """The band rule (JAX's: replicate under 2 rows a band; the port also
     replicates heights that do not divide), `hint`, `band_of` and
     `global_shape` under the `at_rows` scope, and the models that raise
-    under a spatial layout, naming the ROADMAP entry."""
+    under a spatial layout, naming the ROADMAP entry. NyuDecoderWave runs
+    under a layout (a one-rank one here, equal to the plain forward;
+    tests/test_torch_port_spatial_nyu.py bands it over eight ranks), its
+    use_polyphase raises."""
     from wavelet_monodepth_tpu_torch.models.decoders_kitti import (
         DepthDecoder, KittiWaveletDecoder)
     from wavelet_monodepth_tpu_torch.models.decoders_nyu import \
@@ -343,15 +347,27 @@ def test_layout_rule_and_refusals():
             layout.is_band(x[:, :3], 8)
         feats = [torch.zeros(1, 32 // 2 ** i, 48 // 2 ** i, c)
                  for i, c in enumerate(num_ch_enc(18))]
+        nyu_ch = (16, 24, 32, 64, 1280)
+        nyu_feats = [torch.from_numpy(np.random.RandomState(i).rand(
+            1, 32 // 2 ** i, 48 // 2 ** i, c).astype(np.float32))
+            for i, c in enumerate(nyu_ch)]
         for model, call in (
                 (DepthDecoder(num_ch_enc(18)), lambda m: m(feats)),
                 (KittiWaveletDecoder(num_ch_enc(18), use_polyphase=True),
                  lambda m: m(feats)),
-                (NyuDecoderWave((16, 24, 32, 64, 1280)),
-                 lambda m: m(feats)),
+                (NyuDecoderWave(nyu_ch, use_polyphase=True),
+                 lambda m: m(nyu_feats)),
                 (MobileNetV2Encoder(), lambda m: m(torch.zeros(
                     1, 32, 32, 3))),
                 (BatchNorm2d(4).train(), lambda m: m(torch.zeros(
                     2, 4, 2, 2)))):
             with pytest.raises(NotImplementedError, match="item 6a"):
                 call(model)
+    nyu = NyuDecoderWave(nyu_ch).eval()
+    with torch.no_grad():
+        plain = nyu(nyu_feats, thresh_ratio=0.05)
+        with sh.active(sh.Layout(1, 0)):
+            banded = nyu(nyu_feats, thresh_ratio=0.05)
+    assert set(banded) == set(plain)
+    for k, v in plain.items():
+        assert torch.equal(banded[k], v), k

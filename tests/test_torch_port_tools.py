@@ -35,6 +35,7 @@ from wavelet_monodepth_tpu_torch.models.layers import init_params
 from wavelet_monodepth_tpu_torch.models.resnet import ResnetEncoder
 from wavelet_monodepth_tpu_torch.tools import bench_grid as bg
 from wavelet_monodepth_tpu_torch.tools import profile_device as pd
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W = 64, 96

@@ -41,6 +41,7 @@ from wavelet_monodepth_tpu_torch.train import optim as toptim
 from wavelet_monodepth_tpu_torch.train.kitti import KittiTrainSetup as TSetup
 from wavelet_monodepth_tpu_torch.utils import config as tconfig
 from wavelet_monodepth_tpu_torch.utils.config import KittiOptions as TOptions
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 H, W, N = 64, 96, 2

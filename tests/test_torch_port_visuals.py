@@ -36,6 +36,7 @@ from wavelet_monodepth_tpu_torch.tools import train_kitti, train_nyu
 from wavelet_monodepth_tpu_torch.train.kitti import KittiTrainSetup
 from wavelet_monodepth_tpu_torch.utils.config import KittiOptions
 from wavelet_monodepth_tpu_torch.utils.logging import SummaryLogger
+from torch_tmp import drop_module_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 

@@ -31,8 +31,20 @@ bug), and `wave_idxmap` is counted once at scale 1 (the reference counts
 it twice). `use_polyphase` folds each UpBlock's upsample + convA into
 per-phase 2x2 convs at low resolution (`ops/convops.upconv1_polyphase`),
 on JAX's conditions: not depthwise, `use_pallas` false, and masked only
-through the low-res twin of the upsample mask. The NYU models do not run
-under a spatial layout (`parallel/spatial_hints.refuse`).
+through the low-res twin of the upsample mask.
+
+Under a spatial layout (`parallel/spatial_hints.py`, entered by
+`mesh.spatial_forward`) every decoder runs on each rank's band of rows,
+as GSPMD partitions JAX's: each scale's convs under an `at_rows` scope
+of its global height (halos in the conv's own padding mode at the image
+border), a scale too short to band whole on every rank and sliced where
+it upsamples into a banded one, the threshold's max and min and the
+mask counts reduced over the bands, the shape counts at the global
+height (so the masks and ("total_ops", -1) equal one process's). A
+Conv3x3 that reaches K1, K4 or capacity runs whole on every rank
+(`layers.Conv3x3._whole`). The outputs carry their global heights
+(`spatial_hints.mark`). `use_polyphase` raises there
+(`spatial_hints.refuse`).
 """
 
 from __future__ import annotations
@@ -44,10 +56,10 @@ import torch.nn as nn
 
 from ..ops import sparse as sp
 from ..ops.convops import upconv1_polyphase
-from ..ops.image import upsample_nearest2x
 from ..ops.wavelets import haar_idwt
 from ..parallel import spatial_hints
-from .layers import Conv3x3, DWConv3x3, leaky_relu_02, sparse_backend
+from .layers import (Conv3x3, DWConv3x3, leaky_relu_02, sparse_backend,
+                     upsample_concat)
 
 Tensor = torch.Tensor
 
@@ -61,16 +73,34 @@ def _conv3x3(cin: int, cout: int, pad_mode: str, depthwise: bool):
             else Conv3x3(cin, cout, pad_mode))
 
 
-def _idwt(ll: Tensor, h: Tensor) -> Tensor:
-    return haar_idwt(ll, h[..., 0:1], h[..., 1:2], h[..., 2:3])
+def _idwt(ll: Tensor, h: Tensor, rows: Optional[int] = None) -> Tensor:
+    """haar_idwt; under a spatial layout `rows` is the output's global
+    height, and a whole output of a banded height keeps this rank's
+    band."""
+    return spatial_hints.hint(
+        haar_idwt(ll, h[..., 0:1], h[..., 1:2], h[..., 2:3]), rows)
 
 
-def _log(outputs: dict, s: int, yl: Optional[Tensor], h: Tensor) -> None:
+def _log(outputs: dict, s: int, yl: Optional[Tensor], h: Tensor,
+         rows: int) -> None:
+    mark = spatial_hints.mark
     if yl is not None:
-        outputs[("wavelets", s, "LL")] = yl
-    outputs[("wavelets", s, "LH")] = h[..., 0:1]
-    outputs[("wavelets", s, "HL")] = h[..., 1:2]
-    outputs[("wavelets", s, "HH")] = h[..., 2:3]
+        outputs[("wavelets", s, "LL")] = mark(yl, rows)
+    outputs[("wavelets", s, "LH")] = mark(h[..., 0:1], rows)
+    outputs[("wavelets", s, "HL")] = mark(h[..., 1:2], rows)
+    outputs[("wavelets", s, "HH")] = mark(h[..., 2:3], rows)
+
+
+def _banded(features: Sequence[Tensor], use_polyphase: bool):
+    """(the features, their global heights): under a spatial layout each
+    in the band layout (a whole feature of a banded height is sliced),
+    and use_polyphase refused; as they are outside one."""
+    if spatial_hints.current() is not None:
+        if use_polyphase:
+            spatial_hints.refuse("use_polyphase")
+        features = [spatial_hints.hint(f, spatial_hints.rows_of(f))
+                    for f in features]
+    return features, [spatial_hints.rows_of(f) for f in features]
 
 
 class UpBlock(nn.Module):
@@ -82,7 +112,11 @@ class UpBlock(nn.Module):
     condition). Masked, upsample(x) * up_out_mask == upsample(x *
     up_in_mask_lo) because the 5x5-dilated upsampled mask is
     2x2-constant: the caller passes dilate3(mask) as the low-res twin,
-    and without it a masked call takes the plain composition."""
+    and without it a masked call takes the plain composition.
+
+    Under a spatial layout the caller scopes the output's global height
+    (`spatial_hints.at_rows`): a whole x upsampled into a banded height
+    keeps this rank's band (`layers.upsample_concat`)."""
 
     def __init__(self, in_features: int, features: int,
                  pad_mode: str = "reflect", depthwise: bool = False,
@@ -109,9 +143,7 @@ class UpBlock(nn.Module):
             y = upconv1_polyphase(xu, sk, conv.weight, conv.bias,
                                   self.pad_mode, nonlin=leaky_relu_02)
             return y if out_mask is None else y * out_mask
-        up = torch.cat([upsample_nearest2x(x), skip], dim=-1)
-        if up_out_mask is not None:
-            up = up * up_out_mask
+        up = upsample_concat(x, skip, up_out_mask)
         if self.depthwise:
             return self.convA(up, None, out_mask, nonlin=leaky_relu_02)
         return self.convA(up, None, out_mask, nonlin=leaky_relu_02,
@@ -140,6 +172,7 @@ class NyuDecoder(nn.Module):
                  use_polyphase: bool = False):
         super().__init__()
         self.num_ch_enc = tuple(num_ch_enc)
+        self.use_polyphase = use_polyphase
         f = int(self.num_ch_enc[-1] * decoder_width)
         self.conv2 = Conv3x3(self.num_ch_enc[-1], f, "zero")
         for k, up in enumerate(_up_blocks(self.num_ch_enc, f, 4, "zero",
@@ -152,13 +185,21 @@ class NyuDecoder(nn.Module):
         self.conv3 = _conv3x3(head_in, 1, "zero", is_depthwise)
 
     def forward(self, features: Sequence[Tensor]) -> dict:
-        spatial_hints.refuse(type(self).__name__)
-        x = self.conv2(features[-1])
+        features, rows = _banded(features, self.use_polyphase)
+        at_rows = spatial_hints.at_rows
+        with at_rows(rows[-1]):
+            x = self.conv2(features[-1])
         for k in range(1, 5):
-            x = getattr(self, f"up{k}")(x, features[-1 - k])
+            with at_rows(rows[-1 - k]):
+                x = getattr(self, f"up{k}")(x, features[-1 - k])
+        out_rows = rows[0]
         if self.full_res:
-            x = leaky_relu_02(self.conv5(upsample_nearest2x(x)))
-        return {("disp", 0): self.conv3(x)}
+            out_rows *= 2
+            with at_rows(out_rows):
+                x = leaky_relu_02(self.conv5(upsample_concat(x, None)))
+        with at_rows(out_rows):
+            return {("disp", 0): spatial_hints.mark(self.conv3(x),
+                                                    out_rows)}
 
 
 class NyuDecoder224(NyuDecoder):
@@ -182,6 +223,7 @@ class NyuDecoderWave(nn.Module):
         super().__init__()
         self.num_ch_enc = tuple(num_ch_enc)
         self.dw_waveconv, self.dw_upconv = dw_waveconv, dw_upconv
+        self.use_polyphase = use_polyphase
         f = self.f = int(self.num_ch_enc[-1] * decoder_width)
         self.conv2 = Conv3x3(self.num_ch_enc[-1], f, "replicate")
         ups = _up_blocks(self.num_ch_enc, f, 3, "reflect", dw_upconv,
@@ -203,32 +245,39 @@ class NyuDecoderWave(nn.Module):
         mask_override: {sparse scale s: (N, h, w, 1) raw mask} replaces
         the threshold mask at that scale (dilations and op counts follow
         it), as the KITTI decoder's does, to decode at a chosen density."""
-        spatial_hints.refuse("NyuDecoderWave")
+        features, rows = _banded(features, self.use_polyphase)
         if thresh_ratio is None:
-            return self._dense(features)
-        return self._sparse(features, thresh_ratio, use_pallas,
+            return self._dense(features, rows)
+        return self._sparse(features, rows, thresh_ratio, use_pallas,
                             capacity_ratio, mask_override)
 
-    def _dense(self, features: Sequence[Tensor]) -> dict:
+    def _dense(self, features: Sequence[Tensor], rows: list) -> dict:
+        at_rows, mark = spatial_hints.at_rows, spatial_hints.mark
         outputs = {}
-        x_d1 = self.up1(self.conv2(features[-1]), features[-2])
-        ll = (2.0 ** 3) * self.wave1_ll(x_d1)
-        outputs[("disp", 3)] = ll / (2.0 ** 3)
-        h = (2.0 ** 2) * self.wave1(x_d1)
-        _log(outputs, 2, ll, h)
-        ll = _idwt(ll, h)
-        outputs[("disp", 2)] = ll / (2.0 ** 2)
+        with at_rows(rows[-1]):
+            x_d0 = self.conv2(features[-1])
+        with at_rows(rows[-2]):
+            x_d1 = self.up1(x_d0, features[-2])
+            ll = (2.0 ** 3) * self.wave1_ll(x_d1)
+            h = (2.0 ** 2) * self.wave1(x_d1)
+        outputs[("disp", 3)] = mark(ll / (2.0 ** 3), rows[-2])
+        _log(outputs, 2, ll, h, rows[-2])
+        ll = _idwt(ll, h, rows[-3])
+        outputs[("disp", 2)] = mark(ll / (2.0 ** 2), rows[-3])
 
-        x_d2 = self.up2(x_d1, features[-3])
-        h = 2.0 * self.wave2(x_d2)
-        _log(outputs, 1, None, h)
-        ll = _idwt(ll, h)
-        outputs[("disp", 1)] = ll / 2.0
+        with at_rows(rows[-3]):
+            x_d2 = self.up2(x_d1, features[-3])
+            h = 2.0 * self.wave2(x_d2)
+        _log(outputs, 1, None, h, rows[-3])
+        ll = _idwt(ll, h, rows[-4])
+        outputs[("disp", 1)] = mark(ll / 2.0, rows[-4])
 
-        x_d3 = self.up3(x_d2, features[-4])
-        h = self.wave3(x_d3)
-        _log(outputs, 0, None, h)
-        outputs[("disp", 0)] = _idwt(ll, h)
+        with at_rows(rows[-4]):
+            x_d3 = self.up3(x_d2, features[-4])
+            h = self.wave3(x_d3)
+        _log(outputs, 0, None, h, rows[-4])
+        outputs[("disp", 0)] = mark(_idwt(ll, h, 2 * rows[-4]),
+                                    2 * rows[-4])
         return outputs
 
     def reaches_kernel(self, use_pallas) -> bool:
@@ -239,10 +288,14 @@ class NyuDecoderWave(nn.Module):
         return ((backend in ("pallas", "pallas2d") and not self.dw_upconv)
                 or (bool(use_pallas) and not self.dw_waveconv))
 
-    def _sparse(self, features: Sequence[Tensor], thresh_ratio,
+    def _sparse(self, features: Sequence[Tensor], rows: list, thresh_ratio,
                 use_pallas=False, capacity_ratio: float = 0.5,
                 mask_override: Optional[dict] = None) -> dict:
+        """rows: the features' global heights (their own outside a spatial
+        layout)."""
         mask_override = mask_override or {}
+        at_rows, mark = spatial_hints.at_rows, spatial_hints.mark
+        global_shape = spatial_hints.global_shape
         x_m1 = features[-1]
         if x_m1.dtype == torch.bfloat16 and self.reaches_kernel(use_pallas):
             raise NotImplementedError(
@@ -253,22 +306,24 @@ class NyuDecoderWave(nn.Module):
         outputs = {}
         total = x_m1.new_zeros((x_m1.shape[0],), dtype=torch.float32)
 
-        total += sp.ops_dense_conv3x3_nyu(x_m1.shape, self.f)
-        x_d0 = self.conv2(x_m1)
-        x_d1 = self.up1(x_d0, features[-2])
-        cat_c = x_d0.shape[-1] + features[-2].shape[-1]
-        total += _f32((1 + 9 * cat_c) * x_d1.shape[1] * x_d1.shape[2]
-                      * x_d1.shape[3])
-        ll = (2.0 ** 3) * self.wave1_ll(x_d1)
-        outputs[("disp", 3)] = ll / (2.0 ** 3)
-        h = (2.0 ** 2) * self.wave1(x_d1)
-        total += _f32((1 + 9 * x_d1.shape[-1]) * x_d1.shape[1]
-                      * x_d1.shape[2] * 4)
-        outputs[("wavelet_mask", 2)] = torch.ones_like(h[..., 0:1])
-        _log(outputs, 2, ll, h)
-        ll = _idwt(ll, h)
-        total += _f32(ll.shape[1] * ll.shape[2])
-        outputs[("disp", 2)] = ll / (2.0 ** 2)
+        with at_rows(rows[-1]):
+            total += sp.ops_dense_conv3x3_nyu(global_shape(x_m1), self.f)
+            x_d0 = self.conv2(x_m1)
+        with at_rows(rows[-2]):
+            x_d1 = self.up1(x_d0, features[-2])
+            _, h1, w1, c1 = global_shape(x_d1)
+            cat_c = x_d0.shape[-1] + features[-2].shape[-1]
+            total += _f32((1 + 9 * cat_c) * h1 * w1 * c1)
+            ll = (2.0 ** 3) * self.wave1_ll(x_d1)
+            h = (2.0 ** 2) * self.wave1(x_d1)
+        outputs[("disp", 3)] = mark(ll / (2.0 ** 3), rows[-2])
+        total += _f32((1 + 9 * c1) * h1 * w1 * 4)
+        outputs[("wavelet_mask", 2)] = mark(torch.ones_like(h[..., 0:1]),
+                                            rows[-2])
+        _log(outputs, 2, ll, h, rows[-2])
+        ll = _idwt(ll, h, rows[-3])
+        total += _f32(rows[-3] * ll.shape[2])
+        outputs[("disp", 2)] = mark(ll / (2.0 ** 2), rows[-3])
 
         # sparse scales: (scale, up block, wave conv, skip, 2^s coefficient
         # scale)
@@ -276,41 +331,52 @@ class NyuDecoderWave(nn.Module):
         # JAX calls the heads with use_pallas=True for any truthy
         # use_pallas (`decoders_nyu.py:295-297`)
         heads_backend = bool(use_pallas)
-        for s, up, wave, skip, coeff_pow in (
-                (1, self.up2, self.wave2, features[-3], 1),
-                (0, self.up3, self.wave3, features[-4], 0)):
+        # (global heights: x, h and the mask at lo; the upsample, the skip
+        # and the incoming ll at hi)
+        for s, up, wave, skip, coeff_pow, lo, hi in (
+                (1, self.up2, self.wave2, features[-3], 1, rows[-2],
+                 rows[-3]),
+                (0, self.up3, self.wave3, features[-4], 0, rows[-3],
+                 rows[-4])):
             if s in mask_override:
-                mask = mask_override[s].to(ll.dtype)
+                mask = spatial_hints.hint(mask_override[s].to(ll.dtype), lo)
             else:
-                mask = sp.wavelet_threshold_mask(ll, h, thresh_ratio)
-            total += sp.ops_threshold(mask)
-            umask = upsample_nearest2x(mask)
-            up_mask = sp.dilate_mask(mask, 5)
-            conva_mask = sp.dilate_mask(umask, 5)
-            wave_mask = sp.dilate_mask(umask, 3)
-            wavelet_mask = umask
-            total += sp.ops_dilation(mask)
-            for m in (wavelet_mask, conva_mask, wave_mask, up_mask):
-                total += sp.ops_mask2idxmap(m)
-            outputs[("wavelet_mask", s)] = wavelet_mask
+                with at_rows(hi):
+                    mask = sp.wavelet_threshold_mask(ll, h, thresh_ratio)
+            with at_rows(lo):
+                total += sp.ops_threshold(mask)
+                masks = sp.stage_masks(mask)
+                total += sp.ops_dilation(mask)
+            # the UpBlock's in mask (dilate5 of the mask), its concat's and
+            # its out mask (dilate5, dilate3 of the upsampled mask), the
+            # head's (the upsampled mask)
+            up_mask, conva_mask, wave_mask, wavelet_mask = (
+                masks[k] for k in ("upconv0", "upsample", "upconv1",
+                                   "wavelet"))
+            for m, m_rows in ((wavelet_mask, hi), (conva_mask, hi),
+                              (wave_mask, hi), (up_mask, lo)):
+                with at_rows(m_rows):
+                    total += sp.ops_mask2idxmap(m)
+            outputs[("wavelet_mask", s)] = mark(wavelet_mask, hi)
 
             cat_c = x.shape[-1] + skip.shape[-1]
-            # the low-res twin of conva_mask, which only the polyphase
-            # fold reads (JAX computes it in every case)
-            lo_twin = sp.dilate_mask(mask, 3) if up.use_polyphase else None
-            x = up(x, skip, in_mask=up_mask, up_out_mask=conva_mask,
-                   out_mask=wave_mask, use_pallas=use_pallas,
-                   capacity_ratio=capacity_ratio, up_in_mask_lo=lo_twin)
-            total += sp.ops_sparse_conv3x3(
-                sp.mask_count(wave_mask), cat_c, x.shape[-1])
-            h = wave(x, None, wavelet_mask, use_pallas=heads_backend)
-            total += sp.ops_sparse_conv3x3(
-                sp.mask_count(wavelet_mask), x.shape[-1], 3)
+            # the low-res twin of conva_mask (dilate3 of the mask), which
+            # only the polyphase fold reads
+            lo_twin = masks["lowres"] if up.use_polyphase else None
+            with at_rows(hi):
+                x = up(x, skip, in_mask=up_mask, up_out_mask=conva_mask,
+                       out_mask=wave_mask, use_pallas=use_pallas,
+                       capacity_ratio=capacity_ratio, up_in_mask_lo=lo_twin)
+                total += sp.ops_sparse_conv3x3(
+                    sp.mask_count(wave_mask), cat_c, x.shape[-1])
+                h = wave(x, None, wavelet_mask, use_pallas=heads_backend)
+                total += sp.ops_sparse_conv3x3(
+                    sp.mask_count(wavelet_mask), x.shape[-1], 3)
             h = (2.0 ** coeff_pow) * h
-            _log(outputs, s, None, h)
-            ll = _idwt(ll, h)
-            total += _f32(ll.shape[1] * ll.shape[2])
-            outputs[("disp", s)] = ll / (2.0 ** coeff_pow)
+            _log(outputs, s, None, h, hi)
+            ll = _idwt(ll, h, 2 * hi)
+            total += _f32(2 * hi * ll.shape[2])
+            outputs[("disp", s)] = mark(ll / (2.0 ** coeff_pow), 2 * hi)
 
         outputs[("total_ops", -1)] = total
         return outputs
@@ -325,6 +391,7 @@ class NyuDecoderWave224(nn.Module):
                  dw_upconv: bool = False, use_polyphase: bool = False):
         super().__init__()
         self.num_ch_enc = tuple(num_ch_enc)
+        self.use_polyphase = use_polyphase
         f = int(self.num_ch_enc[-1] * decoder_width)
         self.conv2 = Conv3x3(self.num_ch_enc[-1], f, "replicate")
         ups = _up_blocks(self.num_ch_enc, f, 4, "reflect", dw_upconv,
@@ -338,18 +405,24 @@ class NyuDecoderWave224(nn.Module):
                                                  dw_waveconv))
 
     def forward(self, features: Sequence[Tensor]) -> dict:
-        spatial_hints.refuse("NyuDecoderWave224")
+        features, rows = _banded(features, self.use_polyphase)
+        at_rows, mark = spatial_hints.at_rows, spatial_hints.mark
         outputs = {}
-        x = self.up1(self.conv2(features[-1]), features[-2])
-        ll = (2.0 ** 4) * self.wave1_ll(x)
-        h = (2.0 ** 3) * self.wave1(x)
-        _log(outputs, 3, ll, h)
-        ll = _idwt(ll, h)
-        outputs[("disp", 3)] = ll / (2.0 ** 3)
+        with at_rows(rows[-1]):
+            x = self.conv2(features[-1])
+        with at_rows(rows[-2]):
+            x = self.up1(x, features[-2])
+            ll = (2.0 ** 4) * self.wave1_ll(x)
+            h = (2.0 ** 3) * self.wave1(x)
+        _log(outputs, 3, ll, h, rows[-2])
+        ll = _idwt(ll, h, 2 * rows[-2])
+        outputs[("disp", 3)] = mark(ll / (2.0 ** 3), 2 * rows[-2])
         for k, s in ((2, 2), (3, 1), (4, 0)):
-            x = getattr(self, f"up{k}")(x, features[-1 - k])
-            h = (2.0 ** s) * getattr(self, f"wave{k}")(x)
-            _log(outputs, s, None, h)
-            ll = _idwt(ll, h)
-            outputs[("disp", s)] = ll / (2.0 ** s)
+            r = rows[-1 - k]
+            with at_rows(r):
+                x = getattr(self, f"up{k}")(x, features[-1 - k])
+                h = (2.0 ** s) * getattr(self, f"wave{k}")(x)
+            _log(outputs, s, None, h, r)
+            ll = _idwt(ll, h, 2 * r)
+            outputs[("disp", s)] = mark(ll / (2.0 ** s), 2 * r)
         return outputs

@@ -19,6 +19,16 @@ BatchNorm is `models/resnet.BatchNorm2d` (flax's biased running
 variance in train mode). Takes NHWC images and returns NHWC features;
 inside, each dense layer concatenates its 48 new channels to its input,
 as torchvision and the JAX package do.
+
+The stem conv, each dense layer's 3x3, the stem's max pool and the
+transitions' average pools go through `spatial_hints.conv2d` /
+`max_pool2d` / `avg_pool2d`, which are the plain ops outside a spatial
+layout. Under one (`parallel/spatial_hints.py`, entered by
+`mesh.spatial_forward`) each rank runs its band of rows between its
+halos, a scale too short to band (at 640x480 over two ranks: H/32, 15
+rows) runs whole on every rank, and every feature carries its global
+height; the 1x1 convs and eval-mode BN are per pixel. Inference only:
+a train-mode BN raises there.
 """
 
 from __future__ import annotations
@@ -46,9 +56,10 @@ class DenseLayer(nn.Module):
                                padding=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rows = spatial_hints.rows_of(x, 2)
         y = self.conv1(F.relu(self.norm1(x)))
-        y = self.conv2(F.relu(self.norm2(y)))
-        return torch.cat([x, y], dim=1)
+        y = spatial_hints.conv2d(self.conv2, F.relu(self.norm2(y)), rows)[0]
+        return spatial_hints.mark(torch.cat([x, y], dim=1), rows)
 
 
 class DenseBlock(nn.Module):
@@ -71,7 +82,9 @@ class Transition(nn.Module):
         self.conv = nn.Conv2d(cin, cout, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, 2)
+        rows = spatial_hints.rows_of(x, 2)
+        return spatial_hints.avg_pool2d(self.conv(F.relu(self.norm(x))),
+                                        rows)[0]
 
 
 class _Features(nn.Module):
@@ -106,13 +119,15 @@ class DenseNet161Encoder(nn.Module):
         self.original_model.features = _Features()
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        spatial_hints.refuse("DenseNet161Encoder")
+        rows = spatial_hints.rows_of(x)
+        x = spatial_hints.hint(x, rows)
         if self.normalize_input:
             x = ((x - x.new_tensor(_MEAN)) / x.new_tensor(_STD))
         f = self.original_model.features
-        x = F.relu(f.norm0(f.conv0(x.permute(0, 3, 1, 2))))
+        x, rows = spatial_hints.conv2d(f.conv0, x.permute(0, 3, 1, 2), rows)
+        x = spatial_hints.mark(F.relu(f.norm0(x)), rows)
         feats = [x]
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = spatial_hints.max_pool2d(x, rows, 3, 2, 1)[0]
         feats.append(x)
         for bi in range(len(BLOCK_CONFIG)):
             x = getattr(f, f"denseblock{bi + 1}")(x)
@@ -121,4 +136,6 @@ class DenseNet161Encoder(nn.Module):
                 if bi < 2:
                     feats.append(x)
         feats.append(x)
-        return [t.permute(0, 2, 3, 1) for t in feats]
+        return [spatial_hints.mark(t.permute(0, 2, 3, 1),
+                                   spatial_hints.rows_of(t, 2))
+                for t in feats]

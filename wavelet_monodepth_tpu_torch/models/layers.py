@@ -8,6 +8,11 @@ Submodule names reproduce the reference's state-dict keys (ConvBlock ->
 `.conv.conv`, WaveConv -> `Sequential(.0.conv, LeakyReLU, .2.conv)`), so
 reference checkpoints load with `strict=True`.
 
+Under a spatial layout's `at_rows` scope (`parallel/spatial_hints.py`)
+the padded convs take their halo rows from the neighbouring bands
+(`ops/image.pad2d`), and a Conv3x3 on a kernel backend runs whole on
+every rank (`Conv3x3._whole`).
+
 `use_pallas` selects the sparse backend when an out_mask is present:
 False/"xla" = masked dense (the oracle, cuDNN), True/"pallas" = the
 row-stripe tile-skip kernel, "pallas2d" = the 2-D tile-skip kernel (both
@@ -124,6 +129,10 @@ class Conv3x3(nn.Module):
         if in_mask is not None:
             x = x * in_mask
         backend = sparse_backend(use_pallas)
+        if (backend != "xla" and out_mask is not None
+                and spatial_hints.band_of(x) is not None):
+            return self._whole(x, out_mask, nonlin, use_pallas,
+                               capacity_ratio)
         if backend == "capacity" and out_mask is not None:
             return cap.conv3x3_capacity_sparse(
                 x, self.hwio_weight(), self.conv.bias.detach(), out_mask,
@@ -142,6 +151,19 @@ class Conv3x3(nn.Module):
         if out_mask is not None:
             y = y * out_mask
         return y
+
+    def _whole(self, x: Tensor, out_mask: Tensor, nonlin, use_pallas,
+               capacity_ratio: float) -> Tensor:
+        """The kernel path (K1, K4 or capacity) on a band of a spatial
+        layout: x and out_mask gathered to full height, the conv run once
+        on the whole image on every rank, this rank's band kept. GSPMD
+        replicates JAX's Pallas calls the same way."""
+        rows = spatial_hints.global_shape(x)[1]
+        with spatial_hints.at_rows(None):
+            y = self(spatial_hints.gather(x, rows), None,
+                     spatial_hints.gather(out_mask, rows), nonlin,
+                     use_pallas, capacity_ratio)
+        return spatial_hints.hint(y, rows)
 
 
 class Conv1x1(nn.Module):

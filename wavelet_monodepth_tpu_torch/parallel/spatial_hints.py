@@ -22,14 +22,14 @@ height.
 Halos. A windowed op with kernel k, stride s and pad p along H, from a
 banded input to a banded output, takes p rows from the band above and
 k - p - s from the band below (`halo`): 3x3 s1 1/1, 3x3 s2 1/0, the 7x7
-s2 p3 stem 3/2, max_pool2d(3, 2, 1) 1/0, 1x1 0/0, the mask dilations
-(3x3, 5x5) 1/1 and 2/2. Only the first and last bands pad at the image
-border, in the op's own mode ("zero", "reflect", "replicate" or "-inf"
-for the max pools, `assemble`); the horizontal padding is unchanged. An
-op whose output is replicated gathers its input first. Halos and
-gathers go through all_gather on the spatial group; with gloo the
-tensors go through the host, as gloo's collectives take (the
-`mesh._comm_device` rule).
+s2 p3 stem 3/2, max_pool2d(3, 2, 1) 1/0, 1x1 0/0, avg_pool2d(2, 2) 0/0,
+the mask dilations (3x3, 5x5) 1/1 and 2/2. Only the first and last
+bands pad at the image border, in the op's own mode ("zero", "reflect",
+"replicate" or "-inf" for the max pools, `assemble`); the horizontal
+padding is unchanged. An op whose output is replicated gathers its
+input first. Halos and gathers go through all_gather on the spatial
+group; with gloo the tensors go through the host, as gloo's collectives
+take (the `mesh._comm_device` rule).
 
 Global heights: the encoder and decoder know the height of every tensor
 they make. `mark` tags a tensor that leaves a module with its global
@@ -351,3 +351,12 @@ def max_pool2d(x: torch.Tensor, rows: int, k: int, s: int, p: int
     banded by `window` (-inf at the image border, as the pool pads)."""
     return window(x, rows, k, s, p, "-inf",
                   lambda t, ph: F.max_pool2d(t, k, s, (ph, p)))
+
+
+def avg_pool2d(x: torch.Tensor, rows: int, k: int = 2, s: int = 2
+               ) -> tuple[torch.Tensor, int]:
+    """`F.avg_pool2d(x, k, s)` (NCHW, no padding: DenseNet's transitions)
+    on `x` of `rows` global rows, banded by `window`: k = s = 2 has no
+    halo on even bands."""
+    return window(x, rows, k, s, 0, "zero",
+                  lambda t, ph: F.avg_pool2d(t, k, s))
