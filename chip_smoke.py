@@ -333,17 +333,22 @@ failure raises and exits non-zero:
      total_ops, no overflow. K1, K4, K5 and K6 launched in each rank as
      often as on one card; no scatter fault in either rank. ms per
      forward of each rank and of one card, information only. Then the
-     same ranks run NYU DenseNet161 + NyuDecoderWave (phase 12's seeded
-     model, in metres) at 640x480, B=1, on 240-row bands: dense, and
-     sparse at 0.05 on False, True (K1 x4), pallas2d (K4 x2 + K1 x2) and
-     capacity (K1 x2, capacity_ratio 1.0), each counted once, timed
-     once; held to the one-card forward as above (its own B=2 floor;
-     computed after the ranks end: beside phase 21's NYU training it
-     left the ranks short of card memory), each kernel case also to the
-     one-card masked-dense answer under phase 12's NYU contract (masks
-     but for near ties, op counts, every output within TOL relative to
-     max(1, max |ref|)), with phase 12's K1 / K4 launches in each rank
-     and on one card.
+     same ranks run SPATIAL_MODEL_CASES at B=1, one model on the card at
+     a time, each case counted once and timed once: NYU at 640x480 on
+     240-row bands, in metres (nyu_modules' heads), DenseNet161 +
+     NyuDecoderWave (phase 12's seeded model) dense and sparse at 0.05
+     on False, True (K1 x4), pallas2d (K4 x2 + K1 x2) and capacity (K1
+     x2, capacity_ratio 1.0), MobileNetV2 + NyuDecoderWave dense, sparse
+     on False and pallas2d, and its use_polyphase twin dense; the KITTI
+     R18 1024x320 weights through polyphase_twin, dense and sparse xla,
+     and a seeded baseline DepthDecoder on that encoder, dense. Each held
+     to the one-card forward of its model as above (each model's own B=2
+     floor; computed after the ranks end: beside phase 21's NYU training
+     DenseNet161's left the ranks short of card memory), each kernel
+     case also to the one-card masked-dense answer under phase 12's NYU
+     contract (masks but for near ties, op counts, every output within
+     TOL relative to max(1, max |ref|)), with phase 12's K1 / K4
+     launches in each rank and on one card, and none in the other cases.
 
 stdout: one JSON object per line (the card's nvidia-smi line and the
 CLIs' progress lines aside); the line before the last is the kernels
@@ -352,8 +357,9 @@ K3 with the M+S run's `launches_kitti_pose` and the 1024x320 B=6 run's
 `launches_kitti_hr` and `*_kitti_hr` per-launch times, one rank's
 `launches_ddp` of phase 21's two-rank run, K1, K4, K5 and K6 with
 one rank's `launches_spatial` of a phase 22 forward, and K1 and K4 with
-one rank's `launches_spatial_nyu` over phase 22's NYU cases) and the
-last is {"ok": true, "device": {...}}.
+one rank's `launches_spatial_nyu` over phase 22's NYU DenseNet161 cases and
+`launches_spatial_nyu_mbv2` over its MobileNetV2 cases) and the last is
+{"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py
 """
@@ -2931,23 +2937,28 @@ def nyu_frames(n: int, seed: int = 0):
     return rgb, depth, edges
 
 
-def nyu_modules(seed: int = 10, cm_per_unit: float = 1.0):
-    """A seeded DenseNet161 + NyuDecoderWave (on the CPU, train mode), its
-    heads rescaled so the raw output looks like depth in cm (in metres
-    with cm_per_unit=100): the LL head's weights x3000 and bias +300 give
-    ~1-3.5 m with a metre of structure from the image, the wave heads'
-    weights x250 give partial masks at threshold 0.05 (a random init
-    gives ~0.01 cm of structure, all-active masks and, in bf16, a
-    constant depth). The unit divides the LL and wave heads' scales
-    alike, so the masks stay close to the cm model's."""
+def nyu_modules(seed: int = 10, cm_per_unit: float = 1.0,
+                encoder: str = "densenet"):
+    """A seeded DenseNet161 (or, with encoder="mobilenet", MobileNetV2) +
+    NyuDecoderWave (on the CPU, train mode), its heads rescaled so the
+    raw output looks like depth in cm (in metres with cm_per_unit=100):
+    the LL head's weights x3000 and bias +300 give ~1-3.5 m with a metre
+    of structure from the image, the wave heads' weights x250 give
+    partial masks at threshold 0.05 (a random init gives ~0.01 cm of
+    structure, all-active masks and, in bf16, a constant depth). The unit
+    divides the LL and wave heads' scales alike, so the masks stay close
+    to the cm model's."""
     import torch
     from wavelet_monodepth_tpu_torch.models.decoders_nyu import \
         NyuDecoderWave
     from wavelet_monodepth_tpu_torch.models.densenet import \
         DenseNet161Encoder
     from wavelet_monodepth_tpu_torch.models.layers import init_params
+    from wavelet_monodepth_tpu_torch.models.mobilenetv2 import \
+        MobileNetV2Encoder
     g = torch.Generator().manual_seed(seed)
-    enc = init_params(DenseNet161Encoder(), g)
+    enc = init_params({"densenet": DenseNet161Encoder,
+                       "mobilenet": MobileNetV2Encoder}[encoder](), g)
     dec = init_params(NyuDecoderWave(enc.num_ch_enc), g)
     with torch.no_grad():
         dec.wave1_ll.conv.weight.mul_(3000.0 / cm_per_unit)
@@ -5423,27 +5434,54 @@ SPATIAL_MASKS_FROM = {"sparse_compact": "sparse_xla"}
 SPATIAL_KERNELS = {"sparse_pallas": ("conv3x3_tile_sparse",),
                    "sparse_pallas2d": ("conv3x3_tile_sparse_2d",),
                    "sparse_compact": ("band_gather", "block_scatter")}
-# NYU: phase 12's seeded DenseNet161 + NyuDecoderWave in metres at the
-# published 640x480, B=1, over the same ranks: dense, and sparse at
-# NYU_THRESH on False (masked dense), True (K1 x4), "pallas2d" (K4 x2 +
-# K1 x2) and "capacity" (K1 x2; capacity_ratio 1.0 drops no tile, as
-# phase 12 holds it to the masked-dense answer); each case once counted,
-# then SPATIAL_NYU_CALLS timed forwards
+# then, after the KITTI cases, over the same ranks at B=1, each counted
+# once and timed once: case -> (model, decoder kwargs). NYU at the
+# published 640x480, in metres (nyu_modules' heads): phase 12's seeded
+# DenseNet161 + NyuDecoderWave dense, and sparse at NYU_THRESH on False
+# (masked dense), True (K1 x4), "pallas2d" (K4 x2 + K1 x2) and
+# "capacity" (K1 x2; capacity_ratio 1.0 drops no tile, as phase 12
+# holds it to the masked-dense answer); MobileNetV2 + NyuDecoderWave on
+# the same seed dense, sparse on False and "pallas2d", and its
+# use_polyphase twin dense. KITTI at 1024x320: the R18 weights above
+# through polyphase_twin, dense and sparse xla, and the same encoder with
+# a seeded baseline DepthDecoder, dense
 SPATIAL_NYU_SEED = 10
 SPATIAL_NYU_CM_PER_UNIT = 100.0
-SPATIAL_NYU_CALLS = 1
-SPATIAL_NYU_CASES = {
-    "nyu_dense": {},
-    "nyu_sparse_xla": {"thresh_ratio": NYU_THRESH, "use_pallas": False},
-    "nyu_sparse_pallas": {"thresh_ratio": NYU_THRESH, "use_pallas": True},
-    "nyu_sparse_pallas2d": {"thresh_ratio": NYU_THRESH,
-                            "use_pallas": "pallas2d"},
-    "nyu_sparse_capacity": {"thresh_ratio": NYU_THRESH,
-                            "use_pallas": "capacity",
-                            "capacity_ratio": 1.0},
+SPATIAL_MODEL_CASES = {
+    "nyu_dense": ("nyu_densenet161", {}),
+    "nyu_sparse_xla": ("nyu_densenet161", {"thresh_ratio": NYU_THRESH,
+                                           "use_pallas": False}),
+    "nyu_sparse_pallas": ("nyu_densenet161", {"thresh_ratio": NYU_THRESH,
+                                              "use_pallas": True}),
+    "nyu_sparse_pallas2d": ("nyu_densenet161",
+                            {"thresh_ratio": NYU_THRESH,
+                             "use_pallas": "pallas2d"}),
+    "nyu_sparse_capacity": ("nyu_densenet161",
+                            {"thresh_ratio": NYU_THRESH,
+                             "use_pallas": "capacity",
+                             "capacity_ratio": 1.0}),
+    "nyu_mbv2_dense": ("nyu_mobilenetv2", {}),
+    "nyu_mbv2_sparse_xla": ("nyu_mobilenetv2", {"thresh_ratio": NYU_THRESH,
+                                                "use_pallas": False}),
+    "nyu_mbv2_sparse_pallas2d": ("nyu_mobilenetv2",
+                                 {"thresh_ratio": NYU_THRESH,
+                                  "use_pallas": "pallas2d"}),
+    "nyu_mbv2_polyphase": ("nyu_mobilenetv2_polyphase", {}),
+    "kitti_polyphase_dense": ("kitti_r18_polyphase", {}),
+    "kitti_polyphase_sparse_xla": ("kitti_r18_polyphase",
+                                   {"thresh_ratio": SPATIAL_THRESH,
+                                    "use_pallas": "xla"}),
+    "kitti_depthdecoder": ("kitti_r18_depthdecoder", {}),
 }
-# each kernel case's K1 / K4 launches per forward (phase 12's)
-SPATIAL_NYU_LAUNCHES = {f"nyu_sparse_{b}": n for b, n in NYU_LAUNCHES.items()}
+# each kernel case's masked-dense case (the one-card answer it is also
+# held to) and its K1 / K4 launches per forward (phase 12's); the other
+# cases launch none
+SPATIAL_MODEL_XLA = {
+    **{f"nyu_sparse_{b}": "nyu_sparse_xla" for b in NYU_LAUNCHES},
+    "nyu_mbv2_sparse_pallas2d": "nyu_mbv2_sparse_xla"}
+SPATIAL_MODEL_LAUNCHES = {
+    **{f"nyu_sparse_{b}": n for b, n in NYU_LAUNCHES.items()},
+    "nyu_mbv2_sparse_pallas2d": NYU_LAUNCHES["pallas2d"]}
 
 
 def spatial_image():
@@ -5452,15 +5490,36 @@ def spatial_image():
     return torch.rand(1, R50_H, R50_W, 3, generator=g)
 
 
-def spatial_nyu_image(dev):
-    """Phase 12's network input of one seeded synthetic NYU frame."""
-    return nyu_input(nyu_frames(1, seed=SPATIAL_NYU_SEED)[0], dev)
+def spatial_model(model: str, dev):
+    """The encoder and decoder of a SPATIAL_MODEL_CASES model, eval, on
+    `dev`: nyu_modules' DenseNet161 or MobileNetV2 + NyuDecoderWave, or
+    the KITTI cases' seeded R18 with a DepthDecoder seeded after it; a
+    "_polyphase" model is the decoder's polyphase_twin."""
+    import torch
+    from wavelet_monodepth_tpu_torch.models.decoders_kitti import \
+        DepthDecoder
+    from wavelet_monodepth_tpu_torch.models.layers import init_params
+    if model.startswith("nyu"):
+        enc, dec = (m.to(dev).eval() for m in nyu_modules(
+            SPATIAL_NYU_SEED, SPATIAL_NYU_CM_PER_UNIT,
+            "densenet" if model == "nyu_densenet161" else "mobilenet"))
+    else:
+        enc, dec = build_models(dev, seed=SPATIAL_SEED)
+    if model == "kitti_r18_depthdecoder":
+        dec = init_params(DepthDecoder(enc.num_ch_enc),
+                          torch.Generator().manual_seed(SPATIAL_SEED + 1))
+        dec = dec.to(dev).eval()
+    if model.endswith("_polyphase"):
+        dec = polyphase_twin(dec)
+    return enc, dec
 
 
-def spatial_nyu_models(dev):
-    """The NYU cases' DenseNet161 + NyuDecoderWave, eval, on `dev`."""
-    enc, dec = nyu_modules(SPATIAL_NYU_SEED, SPATIAL_NYU_CM_PER_UNIT)
-    return enc.to(dev).eval(), dec.to(dev).eval()
+def spatial_model_image(model: str, dev):
+    """A SPATIAL_MODEL_CASES model's image: phase 12's network input of
+    one seeded synthetic NYU frame, or the KITTI cases' image."""
+    if model.startswith("nyu"):
+        return nyu_input(nyu_frames(1, seed=SPATIAL_NYU_SEED)[0], dev)
+    return spatial_image().to(dev)
 
 
 def spatial_kwargs(name: str, outs: dict) -> dict:
@@ -5487,10 +5546,10 @@ def spatial_rank(rank: int, world: int, port: int, out: str) -> None:
     """Phase 22 in one rank (a job of rank_jobs): the seeded KITTI R18 at
     1024x320 in bands through mesh.spatial_forward, each case once with
     the kernels' counts from 0 around it, then SPATIAL_CALLS timed
-    forwards after a barrier; then the NYU cases alike, with
-    SPATIAL_NYU_CALLS timed forwards; its outputs in full height, its
-    launches, ms per forward, scatter faults and wall clock marks to
-    `out`."""
+    forwards after a barrier; then SPATIAL_MODEL_CASES, each once
+    counted, once timed, one model on the card at a time; its outputs in
+    full height, its launches, ms per forward, scatter faults and wall
+    clock marks to `out`."""
     clock = {"entered": time.time()}
     import torch
     sys.path.insert(0, REPO)
@@ -5526,11 +5585,16 @@ def spatial_rank(rank: int, world: int, port: int, out: str) -> None:
     rec["scatter_faults"] = bio.scatter_faults(dev)
     clock["kitti_done"] = time.time()
     del enc, dec, outs
-    torch.cuda.empty_cache()        # the other rank's memory is the card's too
-    enc, dec = spatial_nyu_models(dev)
-    band = mesh.shard_spatial(m, spatial_nyu_image(dev))
-    rec["nyu_band_rows"] = band.shape[1]
-    for name, kw in SPATIAL_NYU_CASES.items():
+    model = None
+    rec["model_band_rows"] = {}
+    for name, (want, kw) in SPATIAL_MODEL_CASES.items():
+        if want != model:
+            enc = dec = band = None
+            torch.cuda.empty_cache()  # the other rank's memory is the card's
+            model = want
+            enc, dec = spatial_model(model, dev)
+            band = mesh.shard_spatial(m, spatial_model_image(model, dev))
+            rec["model_band_rows"][model] = band.shape[1]
         fwd = mesh.spatial_forward(m, lambda img, kw=kw: dec(enc(img), **kw))
         kernel_launches(reset=True)
         got = fwd(band)
@@ -5540,11 +5604,9 @@ def spatial_rank(rank: int, world: int, port: int, out: str) -> None:
         del got
         mesh.barrier()
         t0 = time.perf_counter()
-        for _ in range(SPATIAL_NYU_CALLS):
-            fwd(band)
+        fwd(band)
         torch.cuda.synchronize()
-        rec["ms"][name] = ((time.perf_counter() - t0) * 1e3
-                           / SPATIAL_NYU_CALLS)
+        rec["ms"][name] = (time.perf_counter() - t0) * 1e3
     clock["done"] = time.time()
     rec["clock"] = clock
     torch.save(rec, out)
@@ -5576,26 +5638,32 @@ def spatial_references(dev) -> dict:
     return refs
 
 
-def spatial_nyu_references(dev, refs: dict) -> None:
-    """spatial_references for the NYU cases, into `refs`. It runs after
-    the ranks have ended: beside phase 21's NYU training in the ranks,
-    its f32 DenseNet161 forwards (cuDNN's FFT workspaces) left the ranks
-    short of card memory."""
+def spatial_model_references(dev, refs: dict) -> None:
+    """spatial_references for SPATIAL_MODEL_CASES, into `refs`: per model
+    its encoder, decoder, image, features and B=2 floor (the dense
+    disparity of the image in a batch of two against B=1), per case its
+    one-card forward and launches. It runs after the ranks have ended:
+    beside phase 21's NYU training in the ranks, its f32 DenseNet161
+    forwards (cuDNN's FFT workspaces) left the ranks short of card
+    memory."""
     import torch
-    enc, dec = spatial_nyu_models(dev)
-    x = spatial_nyu_image(dev)
-    refs["nyu"] = {"enc": enc, "dec": dec, "x": x}
+    for model in dict.fromkeys(m for m, _ in SPATIAL_MODEL_CASES.values()):
+        enc, dec = spatial_model(model, dev)    # parameters outside inference
+        with torch.inference_mode():
+            x = spatial_model_image(model, dev)
+            n = refs[model] = {"enc": enc, "dec": dec, "x": x,
+                               "feats": enc(x)}
+            one, two = dec(n["feats"]), dec(enc(torch.cat([x, x])))
+            n["floor"] = max(float((two[("disp", s)][:1]
+                                    - one[("disp", s)]).abs().max())
+                             for s in range(4))
     with torch.inference_mode():
-        feats = refs["nyu"]["feats"] = enc(x)
-        for name, kw in SPATIAL_NYU_CASES.items():
+        for name, (model, kw) in SPATIAL_MODEL_CASES.items():
+            n = refs[model]
             kernel_launches(reset=True)
-            refs["out"][name] = dec(feats, **kw)
+            refs["out"][name] = n["dec"](n["feats"], **kw)
             torch.cuda.synchronize()
             refs["launches"][name] = kernel_launches()
-        two = dec(enc(torch.cat([x, x])))
-        refs["nyu_floor"] = max(float(
-            (two[("disp", s)][:1] - refs["out"]["nyu_dense"][("disp", s)])
-            .abs().max()) for s in range(4))
 
 
 def spatial_vs_xla(ours: dict, refs: dict, kw: dict) -> dict:
@@ -5651,79 +5719,85 @@ def nyu_near_tie_reference(ours, ref, thresh, rerun):
     return ref, flips
 
 
-def spatial_nyu_vs_xla(ours: dict, refs: dict) -> dict:
+def spatial_nyu_vs_xla(ours: dict, refs: dict, model: str, xla: str
+                       ) -> dict:
     """A NYU kernel case's rank output held to the one-card masked-dense
-    answer under phase 12's NYU contract: masks equal but for near ties
-    (the masked-dense forward rerun under ours' masks), its op counts,
-    every float output within TOL relative to max(1, max |ref|)
-    (nyu_gap)."""
+    answer (case `xla` of refs' `model`) under phase 12's NYU contract:
+    masks equal but for near ties (the masked-dense forward rerun under
+    ours' masks), its op counts, every float output within TOL relative
+    to max(1, max |ref|) (nyu_gap)."""
     import torch
-    n = refs["nyu"]
+    n = refs[model]
     with torch.inference_mode():
         ref, flips = nyu_near_tie_reference(
-            ours, refs["out"]["nyu_sparse_xla"], NYU_THRESH,
+            ours, refs["out"][xla], NYU_THRESH,
             lambda raw: n["dec"](n["feats"], mask_override=raw,
-                                 **SPATIAL_NYU_CASES["nyu_sparse_xla"]))
+                                 thresh_ratio=NYU_THRESH,
+                                 use_pallas=False))
     gap = nyu_gap(ours, ref)
     ops_equal = torch.equal(ours[("total_ops", -1)], ref[("total_ops", -1)])
     return {"gap_rel": gap, "mask_flips": flips, "total_ops_equal":
             ops_equal, "tol": TOL, "ok": gap <= TOL and ops_equal}
 
 
-def spatial_nyu_check(dev, refs: dict, recs: list) -> dict:
-    """Phase 22's NYU lines: each case of the ranks against the one-card
-    forward on the same weights (disp within SPATIAL_DISP_LIMIT or 3x the
-    B=2 floor; masks equal but for near ties, op counts equal), each
-    kernel case also against the one-card masked-dense answer
-    (spatial_nyu_vs_xla) and with phase 12's K1 / K4 launches per rank.
-    Returns one rank's K1 / K4 launches over the NYU cases."""
+def spatial_model_check(dev, refs: dict, recs: list) -> dict:
+    """Phase 22's lines of SPATIAL_MODEL_CASES: each case of the ranks
+    against the one-card forward of its model (the ranks bitwise equal;
+    disp within SPATIAL_DISP_LIMIT or 3x the model's B=2 floor; masks
+    equal but for near ties, op counts equal), each kernel case also
+    against the one-card masked-dense answer (spatial_nyu_vs_xla), every
+    kernel launched in each rank as often as on one card
+    (SPATIAL_MODEL_LAUNCHES, none in the other cases). Returns {model:
+    one rank's K1 / K4 launches over its cases}."""
     import torch
-    spatial_nyu_references(dev, refs)
-    n = refs["nyu"]
-    gate = max(SPATIAL_DISP_LIMIT, 3 * refs["nyu_floor"])
+    spatial_model_references(dev, refs)
     one_ms = {}
     with torch.inference_mode():
-        for name, kw in SPATIAL_NYU_CASES.items():   # one untimed call
-            for _ in range(2):
+        for name, (model, kw) in SPATIAL_MODEL_CASES.items():
+            n = refs[model]
+            for _ in range(2):                       # one untimed call
                 t0 = time.perf_counter()
                 n["dec"](n["enc"](n["x"]), **kw)
                 torch.cuda.synchronize()
             one_ms[name] = (time.perf_counter() - t0) * 1e3
-    launches = dict.fromkeys(KERNELS, 0)
-    for name, kw in SPATIAL_NYU_CASES.items():
-        ref0 = refs["out"][name]
-        row = {"phase": "spatial", "case": name, "model": "nyu_densenet161",
+    launches = {}
+    for name, (model, kw) in SPATIAL_MODEL_CASES.items():
+        n, ref0 = refs[model], refs["out"][name]
+        nyu = model.startswith("nyu")
+        gate = max(SPATIAL_DISP_LIMIT, 3 * n["floor"])
+        row = {"phase": "spatial", "case": name, "model": model,
                "ranks": SPATIAL_RANKS, "backend": "gloo",
-               "res": [NYU_H, NYU_W], "batch": 1,
-               "band_rows": recs[0]["nyu_band_rows"], "disp_gaps": [],
-               "mask_flips": [], "total_ops_equal": [],
-               "disp_limit": SPATIAL_DISP_LIMIT,
-               "floor_b2": refs["nyu_floor"], "gate": gate,
-               "vs_one_card_masked_dense": [], "launches_per_rank":
-               [rec["launches"][name] for rec in recs],
+               "res": list(n["x"].shape[1:3]), "batch": 1,
+               "band_rows": recs[0]["model_band_rows"][model],
+               "disp_gaps": [], "mask_flips": [], "total_ops_equal": [],
+               "disp_limit": SPATIAL_DISP_LIMIT, "floor_b2": n["floor"],
+               "gate": gate, "vs_one_card_masked_dense": [],
+               "launches_per_rank": [rec["launches"][name] for rec in recs],
                "launches_one_card": refs["launches"][name],
                "ms_two_ranks": [rec["ms"][name] for rec in recs],
                "ms_one_card": one_ms[name]}
         if "thresh_ratio" in kw:
             row["density"] = [float(ref0[("wavelet_mask", s)].mean())
-                              for s in (1, 0)]
+                              for s in ((1, 0) if nyu else (2, 1, 0))]
         for rec in recs[1:]:
             require(all(torch.equal(rec["cases"][name][k],
                                     recs[0]["cases"][name][k])
                         for k in recs[0]["cases"][name]),
                     ("spatial: the ranks' outputs differ", name))
         for rec in recs:
-            require(rec["nyu_band_rows"] == NYU_H // SPATIAL_RANKS,
-                    rec["nyu_band_rows"])
+            require(rec["model_band_rows"][model]
+                    == n["x"].shape[1] // SPATIAL_RANKS,
+                    ("spatial band rows", name, rec["model_band_rows"]))
             ours = {k: v.to(dev) for k, v in rec["cases"][name].items()}
             require(set(ours) == set(ref0), ("spatial keys", name))
             ref = ref0
             if "thresh_ratio" in kw:
+                tie = nyu_near_tie_reference if nyu else near_tie_reference
                 with torch.inference_mode():
-                    ref, flips = nyu_near_tie_reference(
-                        ours, ref0, NYU_THRESH,
-                        lambda raw, kw=kw: n["dec"](
-                            n["feats"], mask_override=raw, **kw))
+                    ref, flips = tie(ours, ref0, kw["thresh_ratio"],
+                                     lambda raw, kw=kw: n["dec"](
+                                         n["feats"], mask_override=raw,
+                                         **kw))
                 row["mask_flips"].append(flips)
                 row["total_ops_equal"].append(torch.equal(
                     ours[("total_ops", -1)], ref[("total_ops", -1)]))
@@ -5733,21 +5807,23 @@ def spatial_nyu_check(dev, refs: dict, recs: list) -> dict:
                 require(bool(torch.isfinite(ours[("disp", s)]).all()),
                         ("spatial finite disp", name, s))
             row["disp_gaps"].append(disp_max_gap(ours, ref))
-            if name in SPATIAL_NYU_LAUNCHES:
-                row["vs_one_card_masked_dense"].append(
-                    spatial_nyu_vs_xla(ours, refs))
+            if name in SPATIAL_MODEL_XLA:
+                row["vs_one_card_masked_dense"].append(spatial_nyu_vs_xla(
+                    ours, refs, model, SPATIAL_MODEL_XLA[name]))
         emit({**row, **_card})
-        require(max(row["disp_gaps"]) <= gate, ("spatial NYU disp", row))
-        require(all(row["total_ops_equal"]), ("spatial NYU total_ops", row))
+        require(max(row["disp_gaps"]) <= gate, ("spatial disp", row))
+        require(all(row["total_ops_equal"]), ("spatial total_ops", row))
         require(all(r["ok"] for r in row["vs_one_card_masked_dense"]),
-                ("spatial NYU kernel case vs masked dense", row))
-        want = SPATIAL_NYU_LAUNCHES.get(name, dict.fromkeys(KERNELS, 0))
-        for kern in KERNELS:
-            require(refs["launches"][name][kern] == want[kern]
-                    and all(rec["launches"][name][kern] == want[kern]
+                ("spatial kernel case vs masked dense", row))
+        want = SPATIAL_MODEL_LAUNCHES.get(name, {})
+        for kern in refs["launches"][name]:
+            require(refs["launches"][name][kern] == want.get(kern, 0)
+                    and all(rec["launches"][name][kern] == want.get(kern, 0)
                             for rec in recs),
-                    ("spatial NYU launches", name, kern, row))
-            launches[kern] += recs[0]["launches"][name][kern]
+                    ("spatial launches", name, kern, row))
+        mine = launches.setdefault(model, dict.fromkeys(KERNELS, 0))
+        for kern in mine:
+            mine[kern] += recs[0]["launches"][name][kern]
     return launches
 
 
@@ -5755,9 +5831,10 @@ def spatial_check(dev, refs: dict, recs: list) -> dict:
     """Phase 22's checks and lines: the ranks' records (spatial_rank)
     against the one-card references (spatial_references), each kernel
     case also against the one-card xla answer (spatial_vs_xla), then the
-    NYU cases (spatial_nyu_check). Returns one rank's launches of K1, K4,
-    K5 and K6 over the KITTI cases, and of K1 and K4 over the NYU cases
-    under "<kernel>_nyu"."""
+    cases of SPATIAL_MODEL_CASES (spatial_model_check). Returns one
+    rank's launches of K1, K4, K5 and K6 over the KITTI cases, and of K1
+    and K4 over the NYU DenseNet161 cases under "<kernel>_nyu" and over
+    the NYU MobileNetV2 cases under "<kernel>_nyu_mbv2"."""
     import torch
     enc, dec, feats = refs["enc"], refs["dec"], refs["feats"]
 
@@ -5831,14 +5908,17 @@ def spatial_check(dev, refs: dict, recs: list) -> dict:
             require(n > 0 and all(rec["launches"][name][kern] == n
                                   for rec in recs),
                     ("spatial launches", name, kern, row))
-    nyu = spatial_nyu_check(dev, refs, recs)
+    models = spatial_model_check(dev, refs, recs)
     emit({"phase": "spatial", "rank_timelines_s":
           [rec["timeline_s"] for rec in recs], **_card})
     refs.clear()
     torch.cuda.empty_cache()
     launches = {kern: recs[0]["launches"][name][kern]
                 for name, kerns in SPATIAL_KERNELS.items() for kern in kerns}
-    launches.update({f"{kern}_nyu": k for kern, k in nyu.items()})
+    for model, fam in (("nyu_densenet161", "nyu"),
+                       ("nyu_mobilenetv2", "nyu_mbv2")):
+        launches.update({f"{kern}_{fam}": k
+                         for kern, k in models[model].items()})
     return launches
 
 
@@ -5964,13 +6044,17 @@ def main():
         entry.update(nyu[k])
     # launches_spatial: one rank's of one spatial forward (phase 22): K1 on
     # pallas, K4 on pallas2d, K5 / K6 on compact; launches_spatial_nyu: one
-    # rank's over the NYU sparse forwards (K1: 4 + 2 + 2, K4: 2)
+    # rank's over the NYU sparse forwards (K1: 4 + 2 + 2, K4: 2);
+    # launches_spatial_nyu_mbv2: one rank's over the NYU MobileNetV2
+    # forwards (the pallas2d case: K1 2, K4 2)
     for entry in kernels:
         key = entry["name"].split(" via ")[-1]
         if key in spatial_launches:
             entry["launches_spatial"] = spatial_launches[key]
-        if key + "_nyu" in spatial_launches:
-            entry["launches_spatial_nyu"] = spatial_launches[key + "_nyu"]
+        for fam in ("nyu", "nyu_mbv2"):
+            if f"{key}_{fam}" in spatial_launches:
+                entry[f"launches_spatial_{fam}"] = \
+                    spatial_launches[f"{key}_{fam}"]
     print(card_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

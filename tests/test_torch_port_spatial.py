@@ -290,6 +290,36 @@ def test_halo_rule(op):
                                    atol=1e-12, err_msg=f"{name} band {r}")
 
 
+@pytest.mark.parametrize("lo", ["replicate", "zero"])
+def test_polyphase_fold_halo(lo):
+    """The polyphase fold's low-res 2x2 conv takes 1/1 rows, not
+    `halo(2, 1, 1)`: each band of x0 between one row of each neighbour
+    (at the image border x0's own padding: replicate under the reflect-
+    and replicate-padded decoders, zero under DepthDecoder), padded along
+    W, gives through the VALID conv and the interleave exactly its 2b
+    rows of the whole fold's output."""
+    from wavelet_monodepth_tpu_torch.ops import convops
+    rng = np.random.RandomState(3)
+    rows, co = 16, 3
+    x0 = torch.from_numpy(rng.randn(1, rows, 5, 4))
+    wc = convops._poly_collapse(torch.from_numpy(rng.randn(co, 4, 3, 3)))
+    full = convops._poly_interleave(
+        convops.conv2d(convops.pad2d(x0, 1, lo), wc), co)
+    b = rows // BANDS
+    for r in range(BANDS):
+        above = x0[:, r * b - 1:r * b] if r > 0 else None
+        below = x0[:, (r + 1) * b:(r + 1) * b + 1] if r < BANDS - 1 else None
+        padded = sh.assemble(x0[:, r * b:(r + 1) * b], above, below, 1, 1,
+                             lo)
+        padded = F.pad(padded.permute(0, 3, 1, 2), (1, 1, 0, 0),
+                       mode="constant" if lo == "zero" else lo)
+        got = convops._poly_interleave(
+            convops.conv2d(padded.permute(0, 2, 3, 1), wc), co)
+        np.testing.assert_allclose(
+            got.numpy(), full[:, 2 * r * b:2 * (r + 1) * b].numpy(), rtol=0,
+            atol=1e-12, err_msg=f"band {r}")
+
+
 @pytest.mark.parametrize("h0, ranks", [(64, 8), (64, 4), (192, 2),
                                        (320, 2)])
 def test_stride2_ops_see_even_bands(h0, ranks):
@@ -311,11 +341,13 @@ def test_stride2_ops_see_even_bands(h0, ranks):
 def test_layout_rule_and_refusals():
     """The band rule (JAX's: replicate under 2 rows a band; the port also
     replicates heights that do not divide), `hint`, `band_of` and
-    `global_shape` under the `at_rows` scope, and the models that raise
-    under a spatial layout, naming the ROADMAP entry. NyuDecoderWave runs
-    under a layout (a one-rank one here, equal to the plain forward;
-    tests/test_torch_port_spatial_nyu.py bands it over eight ranks), its
-    use_polyphase raises."""
+    `global_shape` under the `at_rows` scope, and the one refusal left
+    under a spatial layout: a train-mode BN, since spatial inference is
+    a forward. MobileNetV2, the baseline DepthDecoder and use_polyphase
+    on the KITTI and NYU wavelet decoders run under a layout (a one-rank
+    one here, bitwise equal to the plain forward; tests/
+    test_torch_port_spatial_models.py bands them over eight ranks), as
+    NyuDecoderWave does."""
     from wavelet_monodepth_tpu_torch.models.decoders_kitti import (
         DepthDecoder, KittiWaveletDecoder)
     from wavelet_monodepth_tpu_torch.models.decoders_nyu import \
@@ -342,32 +374,40 @@ def test_layout_rule_and_refusals():
             assert torch.equal(sh.hint(x), band)        # the scope's rows
             with sh.upsampled():
                 assert sh.band_of(torch.zeros(1, 8, 1, 1)) is layout
+            with sh.downsampled():
+                assert sh.band_of(torch.zeros(1, 2, 1, 1)) is layout
         assert sh.global_shape(band) == band.shape      # no scope
         with pytest.raises(ValueError, match="neither"):
             layout.is_band(x[:, :3], 8)
-        feats = [torch.zeros(1, 32 // 2 ** i, 48 // 2 ** i, c)
-                 for i, c in enumerate(num_ch_enc(18))]
-        nyu_ch = (16, 24, 32, 64, 1280)
-        nyu_feats = [torch.from_numpy(np.random.RandomState(i).rand(
-            1, 32 // 2 ** i, 48 // 2 ** i, c).astype(np.float32))
-            for i, c in enumerate(nyu_ch)]
-        for model, call in (
-                (DepthDecoder(num_ch_enc(18)), lambda m: m(feats)),
-                (KittiWaveletDecoder(num_ch_enc(18), use_polyphase=True),
-                 lambda m: m(feats)),
-                (NyuDecoderWave(nyu_ch, use_polyphase=True),
-                 lambda m: m(nyu_feats)),
-                (MobileNetV2Encoder(), lambda m: m(torch.zeros(
-                    1, 32, 32, 3))),
-                (BatchNorm2d(4).train(), lambda m: m(torch.zeros(
-                    2, 4, 2, 2)))):
-            with pytest.raises(NotImplementedError, match="item 6a"):
-                call(model)
-    nyu = NyuDecoderWave(nyu_ch).eval()
-    with torch.no_grad():
-        plain = nyu(nyu_feats, thresh_ratio=0.05)
-        with sh.active(sh.Layout(1, 0)):
-            banded = nyu(nyu_feats, thresh_ratio=0.05)
-    assert set(banded) == set(plain)
-    for k, v in plain.items():
-        assert torch.equal(banded[k], v), k
+        with pytest.raises(NotImplementedError,
+                           match="train-mode BatchNorm .*is a forward"):
+            BatchNorm2d(4).train()(torch.zeros(2, 4, 2, 2))
+    rng = np.random.RandomState(0)
+    feats = [torch.from_numpy(rng.rand(1, 32 // 2 ** i, 48 // 2 ** i, c)
+                              .astype(np.float32))
+             for i, c in enumerate(num_ch_enc(18))]
+    nyu_ch = (16, 24, 32, 64, 1280)
+    nyu_feats = [torch.from_numpy(np.random.RandomState(i).rand(
+        1, 32 // 2 ** i, 48 // 2 ** i, c).astype(np.float32))
+        for i, c in enumerate(nyu_ch)]
+    image = torch.from_numpy(rng.rand(1, 64, 64, 3).astype(np.float32))
+    cases = (
+        (NyuDecoderWave(nyu_ch), lambda m: m(nyu_feats, thresh_ratio=0.05)),
+        (DepthDecoder(num_ch_enc(18)), lambda m: m(feats)),
+        (DepthDecoder(num_ch_enc(18), use_polyphase=True),
+         lambda m: m(feats)),
+        (KittiWaveletDecoder(num_ch_enc(18), use_polyphase=True),
+         lambda m: m(feats, thresh_ratio=0.05)),
+        (NyuDecoderWave(nyu_ch, use_polyphase=True),
+         lambda m: m(nyu_feats, thresh_ratio=0.05)),
+        (MobileNetV2Encoder(),
+         lambda m: dict(enumerate(m(image)))))
+    for model, call in cases:
+        model.eval()
+        with torch.no_grad():
+            plain = call(model)
+            with sh.active(sh.Layout(1, 0)):
+                banded = call(model)
+        assert set(banded) == set(plain), type(model).__name__
+        for k, v in plain.items():
+            assert torch.equal(banded[k], v), (type(model).__name__, k)

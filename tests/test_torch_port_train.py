@@ -290,35 +290,19 @@ def test_options_flag_for_flag():
     assert t.all_frame_ids == (0, "s") and not t.use_pose_net
 
 
-def _baseline_polyphase():
-    """use_polyphase runs since the fold was ported (tests/
-    test_torch_port_polyphase.py); under a spatial layout it raises."""
-    from wavelet_monodepth_tpu_torch.models.decoders_kitti import \
-        KittiWaveletDecoder
-    from wavelet_monodepth_tpu_torch.parallel import spatial_hints
-    feats = [torch.zeros(1, 32 // 2 ** i, 48 // 2 ** i, c)
-             for i, c in enumerate((64, 64, 128, 256, 512))]
-    dec = KittiWaveletDecoder((64, 64, 128, 256, 512), use_polyphase=True)
-    with spatial_hints.active(spatial_hints.Layout(2, 0)):
-        dec(feats)
-
-
 @pytest.mark.parametrize("kw,match", [
     (dict(native_decode=True), "native_decode"),
     (dict(frame_ids=(0, -1, 1), pose_model_type="shared"), "'shared'"),
     (dict(encoder_type="mobilenet", weights_init="pretrained",
-          imagenet_weights_path="resnet18.pth"), "MobileNetV2"),
-    (_baseline_polyphase, "use_polyphase")])
+          imagenet_weights_path="resnet18.pth"), "MobileNetV2")])
 def test_unported_features_raise(kw, match):
     """What the port does not run raises: the options JAX cannot run
-    either ("shared" pose nets, MobileNetV2's ImageNet start) and the
-    polyphase upconv under a spatial layout. (Data parallelism is
-    ported: tests/test_torch_port_ddp.py.)"""
+    either ("shared" pose nets, MobileNetV2's ImageNet start). (Data
+    parallelism is ported: tests/test_torch_port_ddp.py; the polyphase
+    upconv runs under a spatial layout too:
+    tests/test_torch_port_spatial_models.py.)"""
     with pytest.raises(NotImplementedError, match=match):
-        if callable(kw):
-            kw()
-        else:
-            TSetup(TOptions(**dict(FIELDS, **kw), device="cpu")).init_state()
+        TSetup(TOptions(**dict(FIELDS, **kw), device="cpu")).init_state()
 
 
 def test_setup_follows_opts_device():

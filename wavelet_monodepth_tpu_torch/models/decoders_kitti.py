@@ -42,9 +42,11 @@ backends ("pallas", "pallas2d", "capacity", "compact", "sites") each
 sparse scale gathers its inputs, runs its kernels once on the whole
 image on every rank and keeps the band: GSPMD replicates JAX's Pallas
 calls the same way. The kernels still run on the card, and a failure
-raises. The outputs carry their global heights (`spatial_hints.mark`).
-The baseline DepthDecoder and `use_polyphase` raise there
-(`spatial_hints.refuse`).
+raises. `use_polyphase` folds in bands too (`ops/convops.
+upconv1_polyphase`), and the baseline DepthDecoder runs each stage in
+bands at its global height (zero padding in its ConvBlocks, reflect in
+its dispconvs, at the image border). The outputs carry their global
+heights (`spatial_hints.mark`).
 """
 
 from __future__ import annotations
@@ -117,21 +119,30 @@ class DepthDecoder(nn.Module):
         self.blocks = dict(blocks)      # by name; registered via `decoder`
 
     def forward(self, features: Sequence[Tensor]) -> dict:
-        spatial_hints.refuse("DepthDecoder")
+        features, rows = spatial_hints.hint_features(features)
+        at_rows = spatial_hints.at_rows
         outputs = {}
         x = features[-1]
+        hi = rows[-1]
         for i in range(4, -1, -1):
-            x = self.blocks[f"upconv_{i}_0"](x)
+            # global heights: x (lo), its upsample, the skip and the
+            # scale's disp (hi)
+            lo, hi = hi, 2 * hi
+            with at_rows(lo):
+                x = self.blocks[f"upconv_{i}_0"](x)
             skip = features[i - 1] if (self.use_skips and i > 0) else None
-            if skip is not None and self.use_polyphase:
-                conv = self.blocks[f"upconv_{i}_1"].conv
-                x = upconv1_polyphase(x, skip, conv.conv.weight,
-                                      conv.conv.bias, "zero", nonlin=F.elu)
-            else:
-                x = self.blocks[f"upconv_{i}_1"](upsample_concat(x, skip))
-            if i in self.scales:
-                outputs[("disp", i)] = torch.sigmoid(
-                    self.blocks[f"dispconv_{i}"](x))
+            with at_rows(hi):
+                if skip is not None and self.use_polyphase:
+                    conv = self.blocks[f"upconv_{i}_1"].conv
+                    x = upconv1_polyphase(x, skip, conv.conv.weight,
+                                          conv.conv.bias, "zero",
+                                          nonlin=F.elu)
+                else:
+                    x = self.blocks[f"upconv_{i}_1"](
+                        upsample_concat(x, skip))
+                if i in self.scales:
+                    outputs[("disp", i)] = spatial_hints.mark(
+                        torch.sigmoid(self.blocks[f"dispconv_{i}"](x)), hi)
         return outputs
 
 
@@ -170,11 +181,7 @@ class KittiWaveletDecoder(nn.Module):
         backends; active tiles or sites beyond it are dropped.
         mask_override: {scale i: (N, Hl, Wl, 1) raw mask} replaces the
         threshold mask at those scales (dilations still run)."""
-        if spatial_hints.current() is not None:
-            if self.use_polyphase:
-                spatial_hints.refuse("use_polyphase")
-            features = [spatial_hints.hint(f, spatial_hints.rows_of(f))
-                        for f in features]
+        features = spatial_hints.hint_features(features)[0]
         if thresh_ratio is None:
             return self._dense(features)
         return self._sparse(features, thresh_ratio, tuple(sparse_scales),

@@ -42,9 +42,9 @@ it upsamples into a banded one, the threshold's max and min and the
 mask counts reduced over the bands, the shape counts at the global
 height (so the masks and ("total_ops", -1) equal one process's). A
 Conv3x3 that reaches K1, K4 or capacity runs whole on every rank
-(`layers.Conv3x3._whole`). The outputs carry their global heights
-(`spatial_hints.mark`). `use_polyphase` raises there
-(`spatial_hints.refuse`).
+(`layers.Conv3x3._whole`), and `use_polyphase` folds in bands
+(`ops/convops.upconv1_polyphase`). The outputs carry their global
+heights (`spatial_hints.mark`).
 """
 
 from __future__ import annotations
@@ -89,18 +89,6 @@ def _log(outputs: dict, s: int, yl: Optional[Tensor], h: Tensor,
     outputs[("wavelets", s, "LH")] = mark(h[..., 0:1], rows)
     outputs[("wavelets", s, "HL")] = mark(h[..., 1:2], rows)
     outputs[("wavelets", s, "HH")] = mark(h[..., 2:3], rows)
-
-
-def _banded(features: Sequence[Tensor], use_polyphase: bool):
-    """(the features, their global heights): under a spatial layout each
-    in the band layout (a whole feature of a banded height is sliced),
-    and use_polyphase refused; as they are outside one."""
-    if spatial_hints.current() is not None:
-        if use_polyphase:
-            spatial_hints.refuse("use_polyphase")
-        features = [spatial_hints.hint(f, spatial_hints.rows_of(f))
-                    for f in features]
-    return features, [spatial_hints.rows_of(f) for f in features]
 
 
 class UpBlock(nn.Module):
@@ -185,7 +173,7 @@ class NyuDecoder(nn.Module):
         self.conv3 = _conv3x3(head_in, 1, "zero", is_depthwise)
 
     def forward(self, features: Sequence[Tensor]) -> dict:
-        features, rows = _banded(features, self.use_polyphase)
+        features, rows = spatial_hints.hint_features(features)
         at_rows = spatial_hints.at_rows
         with at_rows(rows[-1]):
             x = self.conv2(features[-1])
@@ -245,7 +233,7 @@ class NyuDecoderWave(nn.Module):
         mask_override: {sparse scale s: (N, h, w, 1) raw mask} replaces
         the threshold mask at that scale (dilations and op counts follow
         it), as the KITTI decoder's does, to decode at a chosen density."""
-        features, rows = _banded(features, self.use_polyphase)
+        features, rows = spatial_hints.hint_features(features)
         if thresh_ratio is None:
             return self._dense(features, rows)
         return self._sparse(features, rows, thresh_ratio, use_pallas,
@@ -405,7 +393,7 @@ class NyuDecoderWave224(nn.Module):
                                                  dw_waveconv))
 
     def forward(self, features: Sequence[Tensor]) -> dict:
-        features, rows = _banded(features, self.use_polyphase)
+        features, rows = spatial_hints.hint_features(features)
         at_rows, mark = spatial_hints.at_rows, spatial_hints.mark
         outputs = {}
         with at_rows(rows[-1]):

@@ -15,6 +15,16 @@ BatchNorm2d], and [dw ConvBNReLU6, Conv2d, BatchNorm2d] for the
 expand-1 first block. BatchNorm is `models/resnet.BatchNorm2d`. Takes
 NHWC images (no input normalisation, as the reference) and returns NHWC
 features.
+
+Every conv goes through `spatial_hints.conv2d`, which is the module's
+own conv outside a spatial layout. Under one (`parallel/
+spatial_hints.py`, entered by `mesh.spatial_forward`) each rank runs its
+band of rows: the stem's 3x3 stride-2 conv and the depthwise 3x3s
+between their halos, the 1x1 convs, eval-mode BN and ReLU6 per pixel, a
+stride-2 conv whose output is too short to band (at 640x480 over two
+ranks: H/32, 15 rows) on its gathered input, whole on every rank; the
+residual adds join tensors of one layout, and every feature carries its
+global height. Inference only: a train-mode BN raises there.
 """
 
 from __future__ import annotations
@@ -42,6 +52,17 @@ def _conv_bn(cin: int, cout: int, kernel: int, stride: int = 1,
     return layers + [nn.ReLU6()] if relu else layers
 
 
+def _conv_bn_run(seq: nn.Sequential, x: torch.Tensor, rows: int
+                 ) -> tuple[torch.Tensor, int]:
+    """A ConvBNReLU6 `seq` on NCHW `x` of `rows` global rows, its conv
+    through `spatial_hints.conv2d`. Returns (y, its global rows), y
+    tagged."""
+    y, rows = spatial_hints.conv2d(seq[0], x, rows)
+    for layer in seq[1:]:
+        y = layer(y)
+    return spatial_hints.mark(y, rows), rows
+
+
 class InvertedResidual(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int, expand_ratio: int):
         super().__init__()
@@ -56,8 +77,12 @@ class InvertedResidual(nn.Module):
         self.use_res = stride == 1 and cin == cout
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x)
-        return x + y if self.use_res else y
+        y, rows = x, spatial_hints.rows_of(x, 2)
+        for seq in self.conv[:-2]:
+            y, rows = _conv_bn_run(seq, y, rows)
+        y, rows = spatial_hints.conv2d(self.conv[-2], y, rows)
+        y = self.conv[-1](y)
+        return spatial_hints.mark(x + y if self.use_res else y, rows)
 
 
 class MobileNetV2Encoder(nn.Module):
@@ -84,15 +109,19 @@ class MobileNetV2Encoder(nn.Module):
         self.features = nn.ModuleList(layers)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        spatial_hints.refuse("MobileNetV2Encoder")
-        x = x.permute(0, 3, 1, 2)
+        rows = spatial_hints.rows_of(x)
+        x = spatial_hints.hint(x, rows).permute(0, 3, 1, 2)
+        x, rows = _conv_bn_run(self.features[0], x, rows)
+        feats = [x]
         blocks = (self.features[:-1] if self.use_last_layer
                   else self.features)
-        feats = []
-        for i, layer in enumerate(blocks):
-            x = layer(x)
+        for i in range(1, len(blocks)):
+            x = blocks[i](x)
             if i in self.taps:
                 feats.append(x)
         if self.use_last_layer:
-            feats[-1] = self.features[-1](x)
-        return [t.permute(0, 2, 3, 1) for t in feats]
+            feats[-1] = _conv_bn_run(self.features[-1], x,
+                                     spatial_hints.rows_of(x, 2))[0]
+        return [spatial_hints.mark(t.permute(0, 2, 3, 1),
+                                   spatial_hints.rows_of(t, 2))
+                for t in feats]

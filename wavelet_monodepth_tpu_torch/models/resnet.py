@@ -60,7 +60,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        spatial_hints.refuse("train-mode BatchNorm (spatial inference only)")
+        if spatial_hints.current() is not None:
+            raise NotImplementedError(
+                "train-mode BatchNorm does not run under a spatial layout: "
+                "spatial inference is a forward (mesh.spatial_forward runs "
+                "it without autograd, as JAX's jit_spatial_forward is one); "
+                "call .eval() first")
         if mesh.world_size() > 1:
             return self._global_batch_forward(x)
         with torch.no_grad():

@@ -6,7 +6,7 @@ pass straight through. The conv itself is `F.conv2d` on a channels_last
 view, which cuDNN runs natively. `upconv1_polyphase` is JAX's fold of
 nearest-x2 + concat + 3x3 conv into per-phase 2x2 convs at low
 resolution (the decoders' `use_polyphase`), on `F.conv2d` as JAX's on
-XLA convs.
+XLA convs; it runs in bands under a spatial layout.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial_hints
 from .image import pad2d
 
 
@@ -85,12 +86,22 @@ def upconv1_polyphase(x0: torch.Tensor, skip: torch.Tensor,
     at low resolution; zero stays zero.
 
     x0: (N, h, w, Cd) before the upsample; skip: (N, 2h, 2w, Cs); w:
-    (Co, Cd + Cs, 3, 3) OIHW of the fused conv; b: (Co,) or None."""
+    (Co, Cd + Cs, 3, 3) OIHW of the fused conv; b: (Co,) or None.
+
+    Under a spatial layout the caller scopes the output's global height
+    (`spatial_hints.at_rows`). A band of x0 takes one row from each
+    neighbour (the image border padded in x0's own mode) and yields the
+    2b rows of the output's band; a whole x0 upsampled into a banded
+    height runs whole and keeps this rank's band, as
+    `layers.upsample_concat` does; the skip's 3x3 runs at the output's
+    height."""
     cd = x0.shape[-1]
     co = w.shape[0]
     lo_pad = "zero" if pad_mode == "zero" else "replicate"
-    yu = conv2d(pad2d(x0, 1, lo_pad), _poly_collapse(w[:, :cd]))
-    y = _poly_interleave(yu, co) + conv3x3(skip, w[:, cd:], None, pad_mode)
+    with spatial_hints.downsampled():
+        yu = conv2d(pad2d(x0, 1, lo_pad), _poly_collapse(w[:, :cd]))
+    y = (spatial_hints.hint(_poly_interleave(yu, co))
+         + conv3x3(skip, w[:, cd:], None, pad_mode))
     if b is not None:
         y = y + b
     if nonlin is not None:

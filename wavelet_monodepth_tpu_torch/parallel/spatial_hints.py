@@ -23,7 +23,9 @@ Halos. A windowed op with kernel k, stride s and pad p along H, from a
 banded input to a banded output, takes p rows from the band above and
 k - p - s from the band below (`halo`): 3x3 s1 1/1, 3x3 s2 1/0, the 7x7
 s2 p3 stem 3/2, max_pool2d(3, 2, 1) 1/0, 1x1 0/0, avg_pool2d(2, 2) 0/0,
-the mask dilations (3x3, 5x5) 1/1 and 2/2. Only the first and last
+the mask dilations (3x3, 5x5) 1/1 and 2/2, and the polyphase fold's
+low-res 2x2 conv 1/1 (`ops/convops.upconv1_polyphase`: it keeps h + 1
+rows of its h, a band b + 1 of its b). Only the first and last
 bands pad at the image border, in the op's own mode ("zero", "reflect",
 "replicate" or "-inf" for the max pools, `assemble`); the horizontal
 padding is unchanged. An op whose output is replicated gathers its
@@ -62,13 +64,14 @@ _ROWS: contextvars.ContextVar = contextvars.ContextVar(
     "wmd_spatial_rows", default=None)
 # the attribute `mark` sets on a tensor: its global height
 _TAG = "_wmd_global_rows"
-# where the open spatial items are listed
-ROADMAP_ENTRY = "ROADMAP.md, Queue 1 item 6a: the spatial items still open"
 
 
 def halo(k: int, s: int, p: int) -> tuple[int, int]:
     """(rows from the band above, rows from the band below) of a window
-    op with kernel k, stride s and pad p along H."""
+    op with kernel k, stride s and pad p along H. The polyphase fold's
+    2x2 VALID conv on x0 padded by 1 takes 1/1, not halo(2, 1, 1): its
+    output has one row more than its input, so a band yields b + 1 rows,
+    which interleave into the 2b rows of its output band."""
     return p, k - p - s
 
 
@@ -202,14 +205,6 @@ def current() -> Optional[Layout]:
     return _LAYOUT.get()
 
 
-def refuse(what: str) -> None:
-    """Raise NotImplementedError for a model that does not run in bands,
-    under an active layout; a no-op outside one."""
-    if current() is not None:
-        raise NotImplementedError(
-            f"{what} does not run under a spatial layout ({ROADMAP_ENTRY})")
-
-
 _NO_SCOPE = contextlib.nullcontext()
 
 
@@ -232,6 +227,13 @@ def upsampled():
     """The `at_rows` scope of a 2x upsample of the scope's tensors."""
     rows = _ROWS.get()
     return at_rows(None if rows is None else 2 * rows)
+
+
+def downsampled():
+    """The `at_rows` scope of the tensor that a 2x upsample into the
+    scope's tensors reads (the polyphase fold's x0)."""
+    rows = _ROWS.get()
+    return at_rows(None if rows is None else rows // 2)
 
 
 def band_of(x: torch.Tensor, dim: int = 1) -> Optional[Layout]:
@@ -288,6 +290,15 @@ def hint(x: torch.Tensor, rows: Optional[int] = None, dim: int = 1
     elif not layout.banded(rows) and x.shape[dim] != rows:
         x = layout.gather(x, dim)
     return mark(x, rows)
+
+
+def hint_features(features) -> tuple[list, list]:
+    """(the features, their global heights): under an active layout each
+    feature in the band layout at its global height (`rows_of`; a whole
+    feature of a banded height is sliced), as the decoders take them;
+    unchanged outside one."""
+    features = [hint(f, rows_of(f)) for f in features]
+    return features, [rows_of(f) for f in features]
 
 
 def gather(x: torch.Tensor, rows: Optional[int], dim: int = 1
