@@ -10,7 +10,8 @@ eigen-split evaluation (ResNet18 640x192 and ResNet50 1024x320), the
 NYUv2 serving and evaluation path (DenseNet161 + the wavelet decoder at
 640x480) and its training (the same model at batch 8), the 1024x320 B=6
 training of the published HR rows, the training visuals, a soak with a
-kill and a resume, the sparsity-curve tools, the native decoder,
+kill and a resume, the self-golden train -> eval check on the soak's
+checkpoint, the sparsity-curve tools, the native decoder,
 data-parallel training over two ranks, height-banded (spatial) inference
 over two ranks and the decoders' polyphase upconv, plus the fused wave
 stage kernel on the serving slice's own stage inputs, in phases; any
@@ -242,6 +243,23 @@ failure raises and exits non-zero:
      sampled every 0.5 s: every check passes but anon_rss_stable, which
      is printed with the RSS and anonymous-memory peaks and the slope
      after warm-up, not gated;
+17b. self_golden: tools/self_golden.py on the soak's newest checkpoint
+     (weights_3) and phase 11's 16-frame mount: (a) the eigen eval with
+     --eval_stereo --use_wavelets --post_process dense and sparse at 0.02,
+     0.05 and 0.1, the operating point nearest 10% density, and the
+     checkpoint's forward on the card against the CPU's on the first test
+     frame; gated: finite rows, densities in (0, 1] not rising with the
+     threshold, the forward within TOL at every scale; JAX's five checks
+     and "ok" printed, not gated. (b) servers of that checkpoint
+     (tools/infer.load_model) on pallas, pallas2d and compact (compact_cap
+     1.0, under xla's masks) answer the 16 frames as one B=16 batch at the
+     operating point's threshold, each held to xla under phase 5's
+     contract (within TOL, compact away from COMPACT_RING; masks but for
+     near ties; xla's total_ops; no overflow), with 12 K1 / 12 K4 / 18 K5
+     + 6 K6 launches counted from 0 and no scatter fault; the trained
+     masks' density per scale and K1/K4's active granules per conv are
+     printed. (c) information only: the B=16 forward dense, xla, pallas,
+     pallas2d and compact on those masks;
  18. sparsity: tools/sparsity_sweep.py with random and synthetic weights
      (100 training steps) for KITTI ResNet18 640x192 B=8 in float32 and
      bf16, and NYU DenseNet161 480x640 B=4 in bf16 (10 training steps,
@@ -358,8 +376,10 @@ K3 with the M+S run's `launches_kitti_pose` and the 1024x320 B=6 run's
 `launches_ddp` of phase 21's two-rank run, K1, K4, K5 and K6 with
 one rank's `launches_spatial` of a phase 22 forward, and K1 and K4 with
 one rank's `launches_spatial_nyu` over phase 22's NYU DenseNet161 cases and
-`launches_spatial_nyu_mbv2` over its MobileNetV2 cases) and the last is
-{"ok": true, "device": {...}}.
+`launches_spatial_nyu_mbv2` over its MobileNetV2 cases, and K1, K4, K5
+and K6 with `launches_self_golden`, phase 17b's B=16 forward on the
+soaked checkpoint's own masks) and the last is {"ok": true, "device":
+{...}}.
 
 Usage: python3 chip_smoke.py
 """
@@ -637,6 +657,31 @@ def same_answer(ours, ref, thresh, rerun):
     return err, flips
 
 
+# each kernel backend's launches for one sparse forward of the KITTI
+# wavelet decoder, whatever the batch
+BACKEND_LAUNCHES = {"pallas": {"conv3x3_tile_sparse": 12},
+                    "pallas2d": {"conv3x3_tile_sparse_2d": 12},
+                    "compact": {"band_gather": 18, "block_scatter": 6}}
+
+
+def backend_vs_xla(out, ref, backend) -> dict:
+    """Phase 5's contract for a backend's answer `out` against xla's `ref`
+    under the same masks: disp within TOL (compact away from its
+    COMPACT_RING), xla's op counts, no overflow ("ok")."""
+    import torch
+    ring = COMPACT_RING if backend == "compact" else dict.fromkeys(
+        range(4), 0)
+    gap = max(float(interior(out[("disp", s)] - ref[("disp", s)], ring[s])
+                    .abs().max()) for s in range(4))
+    overflow = {s: int(out[("overflow", s)]) for s in range(3)
+                if ("overflow", s) in out}
+    ops_equal = all(torch.equal(out[k], ref[k]) for k in ref
+                    if k[0] == "total_ops")
+    return {"disp_max_abs_err_vs_xla": gap, "border_ring_px": ring,
+            "total_ops_equal": ops_equal, "overflow": overflow,
+            "ok": gap <= TOL and ops_equal and not any(overflow.values())}
+
+
 def phase_slice(dev):
     enc, dec = build_models(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -675,10 +720,7 @@ def serve(dev, enc, dec, tmp):
         servers[backend], feed = infer.load_model(args, dev, backend)
         require(feed == (H, W), feed)
     # each backend's kernel launches per request
-    per_request = {"pallas": {"conv3x3_tile_sparse": 12},
-                   "pallas2d": {"conv3x3_tile_sparse_2d": 12},
-                   "compact": {"band_gather": 18, "block_scatter": 6},
-                   "sites": {}, "capacity": {}}
+    per_request = {**BACKEND_LAUNCHES, "sites": {}, "capacity": {}}
 
     def counts():
         return {**tsc.launches, **bio.launches}
@@ -794,27 +836,17 @@ def phase_contracts(dev, enc, dec):
         # the compacted backends: exact at compact_cap 1.0 (compact away
         # from its border ring), and what 0.5 drops
         for backend in COMPACTED:
-            ring = COMPACT_RING if backend == "compact" else dict.fromkeys(
-                range(4), 0)
             row = {"phase": "contract_operating_point", "batch": 16,
                    "backend": backend, "maskgen_density": dens}
             for cap in (1.0, 0.5):
                 out = dec(feats, thresh_ratio=ratio, mask_override=mo,
                           use_pallas=backend, compact_cap=cap)
-                err = max(float(interior(out[("disp", s)]
-                                         - ref[("disp", s)], ring[s])
-                                .abs().max()) for s in range(4))
-                overflow = {s: int(out[("overflow", s)]) for s in range(3)}
-                ops_equal = all(torch.equal(out[k], ref[k]) for k in ref
-                                if k[0] == "total_ops")
-                row[f"cap_{cap}"] = {"disp_max_abs_err_vs_xla": err,
-                                     "overflow": overflow,
-                                     "total_ops_equal": ops_equal}
+                held = backend_vs_xla(out, ref, backend)
+                row["border_ring_px"] = held.pop("border_ring_px")
+                row[f"cap_{cap}"] = held
                 if cap == 1.0:
-                    require(err <= TOL and ops_equal
-                            and not any(overflow.values()),
-                            (backend, row))
-            emit({**row, "border_ring_px": ring})
+                    require(held["ok"], (backend, row))
+            emit(row)
 
 
 def phase_contracts_r50(dev):
@@ -833,17 +865,12 @@ def phase_contracts_r50(dev):
     disp, raw, ratio, dens, _ = edge_stage_masks(1, 0, R50_H, R50_W)
     img = torch.from_numpy(mg.scene_image(disp, seed=0)).to(dev)
     mo = {i: m.to(dev) for i, m in raw.items()}
-    want = {"pallas": {"conv3x3_tile_sparse": 12},
-            "pallas2d": {"conv3x3_tile_sparse_2d": 12},
-            "compact": {"band_gather": 18, "block_scatter": 6}}
     with torch.inference_mode():
         feats = enc(img)
         require([f.shape[-1] for f in feats] == [64, 256, 512, 1024, 2048],
                 [tuple(f.shape) for f in feats])
         ref = dec(feats, thresh_ratio=ratio, mask_override=mo)
-        for backend, launches in want.items():
-            ring = COMPACT_RING if backend == "compact" else dict.fromkeys(
-                range(4), 0)
+        for backend, launches in BACKEND_LAUNCHES.items():
             before = {**tsc.launches, **bio.launches}
             out = dec(feats, thresh_ratio=ratio, mask_override=mo,
                       use_pallas=backend, compact_cap=1.0)
@@ -851,20 +878,12 @@ def phase_contracts_r50(dev):
             got = {k: v - before[k] for k, v in {**tsc.launches,
                                                  **bio.launches}.items()
                    if v != before[k]}
-            err = max(float(interior(out[("disp", s)] - ref[("disp", s)],
-                                     ring[s]).abs().max()) for s in range(4))
-            overflow = {s: int(out[("overflow", s)]) for s in range(3)
-                        if ("overflow", s) in out}
-            ops_equal = all(torch.equal(out[k], ref[k]) for k in ref
-                            if k[0] == "total_ops")
             row = {"phase": "contract_resnet50", "res": [R50_H, R50_W],
                    "batch": 1, "backend": backend, "compact_cap": 1.0,
-                   "disp_max_abs_err_vs_xla": err, "border_ring_px": ring,
-                   "total_ops_equal": ops_equal, "overflow": overflow,
-                   "launches": got, "maskgen_density": dens,
+                   **backend_vs_xla(out, ref, backend), "launches": got,
+                   "maskgen_density": dens,
                    "density": float(compute_density(out))}
-            require(err <= TOL and ops_equal and not any(overflow.values())
-                    and got == launches, row)
+            require(row["ok"] and got == launches, row)
             emit(row)
 
 
@@ -4441,6 +4460,160 @@ def phase_soak(dev, root: str, tmp: str) -> None:
     require(not failed, ("soak checks", failed))
 
 
+# --- phase 17b: the self-golden check on the soak's checkpoint --------------
+
+def self_golden_gates(s: dict) -> dict:
+    """What the port owns in tools/self_golden.py's summary: finite rows,
+    densities in (0, 1] that do not rise with the threshold, and the
+    card's forward within TOL of the CPU's at every scale."""
+    import numpy as np
+    rows = [s["dense"]] + [r["metrics"] for r in s["sparse_rows"]]
+    ladder = sorted(s["sparse_rows"], key=lambda r: r["threshold"])
+    dens = [r["density"] for r in ladder]
+    in_range = all(d is not None and 0 < d <= 1 for d in dens)
+    return {"rows_finite": all(bool(np.isfinite(v)) for r in rows
+                               for v in r.values()),
+            "densities_in_0_1": in_range,
+            "densities_not_rising": in_range and all(
+                b <= a for a, b in zip(dens, dens[1:])),
+            "oracle_within_tol": all(
+                s["torch_oracle"][f"disp{k}_maxerr"] <= TOL
+                for k in range(4))}
+
+
+def phase_self_golden(dev, eval_root: str, tmp: str) -> dict:
+    """tools/self_golden.py on the soak's checkpoint and phase 11's mount,
+    then the kernel backends on the masks that checkpoint makes (module
+    docstring, phase 17b). Returns each kernel's launches."""
+    import numpy as np
+    import torch
+    from wavelet_monodepth_tpu_torch.data.splits import readlines
+    from wavelet_monodepth_tpu_torch.ops import sparse as sp
+    from wavelet_monodepth_tpu_torch.ops.sparse import compute_density
+    from wavelet_monodepth_tpu_torch.tools import evaluate_depth as ed
+    from wavelet_monodepth_tpu_torch.tools import infer
+    from wavelet_monodepth_tpu_torch.tools import self_golden as sg
+    from wavelet_monodepth_tpu_torch.utils.config import parse_kitti_args
+    t_phase = time.perf_counter()
+
+    # (a) the tool on the card
+    argv = ["--data_path", eval_root, "--log_dir",
+            os.path.join(tmp, "soak", "soak_logs"), "--model_name", "soak",
+            "--out", os.path.join(tmp, "self_golden.json"),
+            "--height", str(H), "--width", str(W), "--device", str(dev)]
+    with contextlib.redirect_stdout(sys.stderr):
+        s = sg.main(argv)
+    gates = self_golden_gates(s)
+    emit({"phase": "self_golden",
+          "checkpoint": os.path.relpath(s["checkpoint"], tmp),
+          "frames": EVAL_TEST_FRAMES, "dense": s["dense"],
+          "sparse_rows": s["sparse_rows"],
+          "operating_point": s["operating_point"],
+          "sparse_vs_dense_absrel_rel_delta":
+              s["sparse_vs_dense_absrel_rel_delta"],
+          "torch_oracle": s["torch_oracle"], "oracle_tol": TOL,
+          "gates": gates, "jax_checks": s["checks"], "jax_ok": s["ok"],
+          "seconds": time.perf_counter() - t_phase, **_card})
+    require(s["checkpoint"].endswith(f"weights_{SOAK_EPOCHS - 1}"),
+            s["checkpoint"])
+    require(all(gates.values()), ("self_golden", gates))
+
+    # (b) the kernel backends on the 16 test frames as one batch, at the
+    # operating point's threshold, under the checkpoint's own masks
+    th = s["operating_point"]["threshold"]
+    opts = parse_kitti_args(sg.eval_argv(sg.parse_args(argv),
+                                         s["checkpoint"], dev))
+    files = readlines(os.path.join(eval_root, "splits", "eigen",
+                                   "test_files.txt"))
+    ds = ed.eval_dataset(opts, files)
+    x = torch.from_numpy(np.stack([ds[i][("color_u8", "0", 0)]
+                                   for i in range(len(ds))])).to(dev)
+    x = x.float() / 255.0
+    require(x.shape == (EVAL_TEST_FRAMES, H, W, 3), tuple(x.shape))
+    args = infer.parse_args(["--image_path", eval_root, "--torch_model_path",
+                             s["checkpoint"], "--use_sparse", "--threshold",
+                             str(th)])
+    servers = {}
+    with contextlib.redirect_stdout(sys.stderr):
+        for backend in ("xla",) + tuple(BACKEND_LAUNCHES):
+            servers[backend], feed = infer.load_model(args, dev, backend,
+                                                      1.0)
+            require(feed == (H, W), feed)
+    ref = servers["xla"](x, th)
+    # compact runs under xla's masks: its border ring moves its own
+    # threshold (phase 22's SPATIAL_MASKS_FROM)
+    raw = raw_masks_of(ref)
+    kwargs = {"pallas": {}, "pallas2d": {}, "compact": {"mask_override": raw}}
+    torch.cuda.synchronize()
+    kernel_launches(reset=True)
+    outs, got = {}, {}
+    for backend in BACKEND_LAUNCHES:
+        before = kernel_launches()
+        outs[backend] = servers[backend](x, th, **kwargs[backend])
+        torch.cuda.synchronize()
+        got[backend] = {k: v - before[k] for k, v in
+                        kernel_launches().items() if v != before[k]}
+    launches = kernel_launches()
+
+    def rerun(masks):
+        return servers["xla"](x, th, mask_override=masks)
+
+    for backend, out in outs.items():
+        with torch.inference_mode():
+            r, flips = near_tie_reference(out, ref, th, rerun)
+        finite = all(bool(torch.isfinite(out[("disp", k)]).all())
+                     for k in range(4))
+        row = {"phase": "self_golden_backend", "backend": backend,
+               "batch": EVAL_TEST_FRAMES, "threshold": th,
+               "compact_cap": 1.0, "launches": got[backend],
+               **backend_vs_xla(out, r, backend), "tol": TOL,
+               "mask_flips": flips,
+               "density": float(compute_density(out))}
+        emit({**row, **_card})
+        require(finite and row["ok"]
+                and got[backend] == BACKEND_LAUNCHES[backend], row)
+    want = {k: n for per in BACKEND_LAUNCHES.values()
+            for k, n in per.items()}
+    require({k: v for k, v in launches.items() if v} == want, launches)
+    no_scatter_faults(dev, "self_golden")
+
+    # the trained masks per sparse scale, and K1/K4's active granules on
+    # each conv's mask
+    convs = []
+    for h, w, cin, cout, _, (i, mk), conv in PATH_CONVS:
+        m = sp.stage_masks(raw[i])[mk]
+        work = granule_work(m, cin, cout)
+        convs.append({"conv": conv, "scale": i, "mask": mk,
+                      "mask_density": float(m.mean()),
+                      "k1_active_share":
+                          work["conv3x3_tile_sparse"]["active_share"],
+                      "k4_active_share":
+                          work["conv3x3_tile_sparse_2d"]["active_share"]})
+    emit({"phase": "self_golden_masks", "batch": EVAL_TEST_FRAMES,
+          "threshold": th, "density": float(compute_density(ref)),
+          "raw_mask_density": {i: float(m.mean()) for i, m in raw.items()},
+          "convs": convs, **_card})
+
+    # (c) information only: the B=16 forward on each backend
+    mo = kwargs["compact"]
+    t = time_variants({"dense": lambda: servers["xla"](x, None),
+                       "sparse_xla": lambda: servers["xla"](x, th),
+                       "sparse_pallas": lambda: servers["pallas"](x, th),
+                       "sparse_pallas2d": lambda: servers["pallas2d"](x, th),
+                       "sparse_compact_cap1.0":
+                           lambda: servers["compact"](x, th, **mo)},
+                      iters=10)
+    no_scatter_faults(dev, "self_golden_time")
+    emit({"phase": "self_golden_time", "batch": EVAL_TEST_FRAMES,
+          "res": [H, W], "threshold": th, **t,
+          "fps_median": {k: EVAL_TEST_FRAMES * 1e3 / v["ms_median"]
+                         for k, v in t.items()},
+          "seconds": time.perf_counter() - t_phase, **_card})
+    del servers, outs, ref, x
+    torch.cuda.empty_cache()
+    return launches
+
+
 # --- phase 18: the sparsity curve ---------------------------------------------
 
 SWEEP_NYU_TRAIN_STEPS = 10          # cut from 300 to fit the time limit
@@ -5672,22 +5845,13 @@ def spatial_vs_xla(ours: dict, refs: dict, kw: dict) -> dict:
     COMPACT_RING), masks equal but for near ties (xla rerun under ours'
     masks), xla's op counts, no overflow ("ok")."""
     import torch
-    ring = COMPACT_RING if kw["use_pallas"] == "compact" else \
-        dict.fromkeys(range(4), 0)
     with torch.inference_mode():
         ref, flips = near_tie_reference(
             ours, refs["out"]["sparse_xla"], SPATIAL_THRESH,
             lambda raw: refs["dec"](refs["feats"], mask_override=raw,
                                     **SPATIAL_CASES["sparse_xla"]))
-    gap = max(float(interior(ours[("disp", s)] - ref[("disp", s)],
-                             ring[s]).abs().max()) for s in range(4))
-    overflow = {s: int(ours[("overflow", s)]) for s in range(3)
-                if ("overflow", s) in ours}
-    ops_equal = torch.equal(ours[("total_ops", -1)], ref[("total_ops", -1)])
-    return {"disp_gap": gap, "mask_flips": flips, "total_ops_equal":
-            ops_equal, "overflow": overflow, "border_ring_px": ring,
-            "tol": TOL, "ok": gap <= TOL and ops_equal
-            and not any(overflow.values())}
+    return {**backend_vs_xla(ours, ref, kw["use_pallas"]),
+            "mask_flips": flips, "tol": TOL}
 
 
 def nyu_near_tie_reference(ours, ref, thresh, rerun):
@@ -6019,6 +6183,7 @@ def main():
         hr = phase_kitti_hr_train(dev, root, tmp, errs)
         phase_visuals(dev, root, tmp, nyu_zip)
         phase_soak(dev, root, tmp)
+        golden_launches = phase_self_golden(dev, eval_root, tmp)
         phase_sparsity(dev, tmp)
         phase_native(dev, eval_root, folder18)
         phase_serving_tools(dev, eval_root, folder18,
@@ -6047,8 +6212,13 @@ def main():
     # rank's over the NYU sparse forwards (K1: 4 + 2 + 2, K4: 2);
     # launches_spatial_nyu_mbv2: one rank's over the NYU MobileNetV2
     # forwards (the pallas2d case: K1 2, K4 2)
+    # launches_self_golden: the self-golden phase's (17b) one B=16 sparse
+    # forward per kernel backend on the soaked checkpoint's own masks (K1
+    # on pallas, K4 on pallas2d, K5 / K6 on compact)
     for entry in kernels:
         key = entry["name"].split(" via ")[-1]
+        if key in golden_launches:
+            entry["launches_self_golden"] = golden_launches[key]
         if key in spatial_launches:
             entry["launches_spatial"] = spatial_launches[key]
         for fam in ("nyu", "nyu_mbv2"):
