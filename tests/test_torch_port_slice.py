@@ -35,91 +35,47 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 64, 96
 
-PORT_MODULES = [
-    "wavelet_monodepth_tpu_torch",
-    "wavelet_monodepth_tpu_torch.ops.image",
-    "wavelet_monodepth_tpu_torch.ops.convops",
-    "wavelet_monodepth_tpu_torch.ops.wavelets",
-    "wavelet_monodepth_tpu_torch.ops.sparse",
-    "wavelet_monodepth_tpu_torch.ops.geometry",
-    "wavelet_monodepth_tpu_torch.ops.tile_sparse_conv",
-    "wavelet_monodepth_tpu_torch.kernels.build",
-    "wavelet_monodepth_tpu_torch.models.layers",
-    "wavelet_monodepth_tpu_torch.models.resnet",
-    "wavelet_monodepth_tpu_torch.models.decoders_kitti",
-    "wavelet_monodepth_tpu_torch.utils.maskgen",
-    "wavelet_monodepth_tpu_torch.tools.torch_import",
-    "wavelet_monodepth_tpu_torch.tools.infer",
-    "wavelet_monodepth_tpu_torch.ops.ssim",
-    "wavelet_monodepth_tpu_torch.ops.warp",
-    "wavelet_monodepth_tpu_torch.ops.augment",
-    "wavelet_monodepth_tpu_torch.models.factory",
-    "wavelet_monodepth_tpu_torch.train.losses_kitti",
-    "wavelet_monodepth_tpu_torch.train.optim",
-    "wavelet_monodepth_tpu_torch.train.kitti",
-    "wavelet_monodepth_tpu_torch.data.splits",
-    "wavelet_monodepth_tpu_torch.data.kitti",
-    "wavelet_monodepth_tpu_torch.data.loader",
-    "wavelet_monodepth_tpu_torch.utils.config",
-    "wavelet_monodepth_tpu_torch.utils.checkpoint",
-    "wavelet_monodepth_tpu_torch.utils.logging",
-    "wavelet_monodepth_tpu_torch.utils.device",
-    "wavelet_monodepth_tpu_torch.tools.train_kitti",
-    "wavelet_monodepth_tpu_torch.ops.blockio",
-    "wavelet_monodepth_tpu_torch.ops.compact",
-    "wavelet_monodepth_tpu_torch.ops.sites",
-    "wavelet_monodepth_tpu_torch.ops.capacity",
-    "wavelet_monodepth_tpu_torch.ops.fused_stage",
-    "wavelet_monodepth_tpu_torch.tools.kernel_ab",
-    "wavelet_monodepth_tpu_torch.tools.k2_phases",
-    "wavelet_monodepth_tpu_torch.utils.precision",
-    "wavelet_monodepth_tpu_torch.tools.bench",
-    "wavelet_monodepth_tpu_torch.ops.metrics",
-    "wavelet_monodepth_tpu_torch.ops.resize",
-    "wavelet_monodepth_tpu_torch.eval.kitti_eval",
-    "wavelet_monodepth_tpu_torch.data.kitti_utils",
-    "wavelet_monodepth_tpu_torch.data.synth",
-    "wavelet_monodepth_tpu_torch.tools.evaluate_depth",
-    "wavelet_monodepth_tpu_torch.tools.export_gt_depth",
-    "wavelet_monodepth_tpu_torch.models.densenet",
-    "wavelet_monodepth_tpu_torch.models.mobilenetv2",
-    "wavelet_monodepth_tpu_torch.models.decoders_nyu",
-    "wavelet_monodepth_tpu_torch.eval.nyu_eval",
-    "wavelet_monodepth_tpu_torch.tools.evaluate_nyu",
-    "wavelet_monodepth_tpu_torch.data.nyu",
-    "wavelet_monodepth_tpu_torch.train.losses_nyu",
-    "wavelet_monodepth_tpu_torch.train.nyu",
-    "wavelet_monodepth_tpu_torch.tools.train_nyu",
-    "wavelet_monodepth_tpu_torch.models.pose",
-    "wavelet_monodepth_tpu_torch.eval.pose_eval",
-    "wavelet_monodepth_tpu_torch.tools.evaluate_pose",
-    "wavelet_monodepth_tpu_torch.tools.precompute_depth_hints",
-    "wavelet_monodepth_tpu_torch.data.native_loader",
-    "wavelet_monodepth_tpu_torch.tools.soak_kitti",
-    "wavelet_monodepth_tpu_torch.tools.sparsity_sweep",
-    "wavelet_monodepth_tpu_torch.tools.plot_sparsity_curve",
-    "wavelet_monodepth_tpu_torch.tools.profile_model",
-    "wavelet_monodepth_tpu_torch.tools.export_serving",
-    "wavelet_monodepth_tpu_torch.tools.serve_artifact",
-    "wavelet_monodepth_tpu_torch.tools.bench_grid",
-    "wavelet_monodepth_tpu_torch.tools.profile_device",
-    "wavelet_monodepth_tpu_torch.tools.golden_check",
-    "wavelet_monodepth_tpu_torch.tools.fetch_pretrained",
-]
+PORT_PACKAGE = os.path.join(REPO, "wavelet_monodepth_tpu_torch")
+
+
+def _port_modules() -> list:
+    """Every module of the port: the package's .py files (build outputs
+    and caches, in directories whose names start with "_", aside)."""
+    names = []
+    for dirpath, dirnames, files in os.walk(PORT_PACKAGE):
+        dirnames[:] = sorted(d for d in dirnames if not d.startswith("_"))
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), REPO)
+                name = rel[:-len(".py")].replace(os.sep, ".")
+                names.append(name[:-len(".__init__")]
+                             if name.endswith(".__init__") else name)
+    return names
+
+
+PORT_MODULES = _port_modules()
 
 
 def test_port_imports_no_jax():
     """Importing every port module (and running infer's lazy imports'
-    targets) loads neither jax/flax nor the JAX package, and no cv2,
-    sklearn or matplotlib (the card's machine has none of them; the plot
-    tool imports matplotlib when it draws)."""
+    targets) loads neither jax/flax nor the JAX package nor tools_dev, and
+    no cv2, sklearn or matplotlib (the card's machine has none of them;
+    the plot tool imports matplotlib when it draws)."""
+    assert {"wavelet_monodepth_tpu_torch.parallel.mesh",
+            "wavelet_monodepth_tpu_torch.parallel.spatial_hints",
+            "wavelet_monodepth_tpu_torch.tools.k6_variants",
+            "wavelet_monodepth_tpu_torch.tools.phase_ab",
+            "wavelet_monodepth_tpu_torch.tools.self_golden",
+            "wavelet_monodepth_tpu_torch.tools.soak_nyu",
+            "wavelet_monodepth_tpu_torch.tools.infer",
+            "wavelet_monodepth_tpu_torch"} <= set(PORT_MODULES)
     code = (
         "import sys, importlib\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
         "import PIL.Image\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'wavelet_monodepth_tpu', 'cv2', "
-        "'sklearn', 'matplotlib'))\n"
+        "('jax', 'jaxlib', 'flax', 'wavelet_monodepth_tpu', 'tools_dev', "
+        "'cv2', 'sklearn', 'matplotlib'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

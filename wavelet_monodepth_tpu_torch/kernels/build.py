@@ -57,19 +57,41 @@ def load(name: str) -> ctypes.CDLL:
 def load_all(names) -> list:
     """Build (if needed) and load several sources: one nvcc per source,
     all started together, so the build takes as long as the slowest."""
-    jobs = {}
+    return finish_all(start_all(names))
+
+
+def start_all(names) -> tuple:
+    """Start one nvcc per source not yet loaded, all together, and return
+    at once: (names, their running builds), which finish_all waits for
+    (the caller may do other work in between)."""
+    names, jobs = list(names), {}
     try:
         for name in names:
             if name not in _libs and name not in jobs:
                 jobs[name] = _start(name)
+    except BaseException:
+        stop_all(jobs)
+        raise
+    return names, jobs
+
+
+def finish_all(started: tuple) -> list:
+    """Wait for start_all's builds and load every library it names."""
+    names, jobs = started
+    try:
         for name, job in jobs.items():
             _finish(name, *job)
     finally:                        # a failed build stops the others
-        for job in jobs.values():
-            if job[3] is not None and job[3].poll() is None:
-                job[3].kill()
-                job[3].wait()
+        stop_all(jobs)
     return [_libs[name] for name in names]
+
+
+def stop_all(jobs: dict) -> None:
+    """Kill the builds' nvcc processes that are still running."""
+    for job in jobs.values():
+        if job[3] is not None and job[3].poll() is None:
+            job[3].kill()
+            job[3].wait()
 
 
 def _start(name: str):
