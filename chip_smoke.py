@@ -275,7 +275,7 @@ phases; any failure raises and exits non-zero:
      JAX's loss_trending_down and rss_stable printed with the RSS and
      anonymous-memory peaks and slope, not gated;
  18. sparsity: tools/sparsity_sweep.py with random and synthetic weights
-     (30 training steps) for KITTI ResNet18 640x192 B=8 in float32 and
+     (100 training steps) for KITTI ResNet18 640x192 B=8 in float32 and
      bf16, and NYU DenseNet161 480x640 B=4 in bf16 (10 training steps,
      cut to fit the time), windows of 2 calls: the dense row and thresh
      -1 at density 1.0 with equal GFLOPs, densities falling as the
@@ -346,8 +346,10 @@ phases; any failure raises and exits non-zero:
      Meanwhile, once the ranks' KITTI run has written its records,
      tools/train_kitti.main --data_axis 2 starts its own two ranks for
      one step on a 12-line split (beside the ranks' NYU and spatial
-     jobs, whose per-rank times are information only). A rank that
-     fails or the launch outlasting 300 s fails the phase.
+     jobs, whose per-rank times are information only: their lines give
+     the seconds they overlapped it, launcher_overlap_s). A rank that
+     fails or the launch outlasting 300 s fails the phase; a rank that
+     exits before its KITTI records exist fails it at once.
  22. spatial: height-banded inference, the same two rank processes on
      the one card (gloo) after phase 21's training (spatial_rank), KITTI
      R18 at the published HR size, 1024x320, B=1 (seeded weights, a
@@ -1852,7 +1854,7 @@ def phase_fused_times(dec, inputs):
 # --- phase 6b: the bench twin ----------------------------------------------
 
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
-BENCH_ITERS = 3        # calls per window (the CLI's 10; the time limit)
+BENCH_ITERS = 5        # calls per window (the CLI's 10; the time limit)
 
 
 def phase_bench(dev) -> None:
@@ -2521,7 +2523,8 @@ class Trace:
     `EventList._build_tree`), without a FunctionEvent per event:
     prof.events() spends ~70 us on each, seconds on the tens of thousands of
     kernels of one call to a conv that cuDNN runs as an FFT. from_events:
-    the same read from prof.events() (FunctionEvents as ops)."""
+    the same read from prof.events() (FunctionEvents as ops), check_trace's
+    reference only."""
 
     @classmethod
     def from_events(cls, prof) -> "Trace":
@@ -2636,22 +2639,18 @@ _trace_checked = []
 
 def read_trace(prof, shapes: bool) -> Trace:
     """The profile as a Trace. The run's first is also read through
-    prof.events() (check_trace); where the two disagree, or the reader
-    fails on this torch, every trace is read that way."""
-    if _trace_checked:
-        return Trace(prof) if _trace_checked[0]["ok"] else \
-            Trace.from_events(prof)
+    prof.events() (check_trace), and must equal it."""
     t0 = time.perf_counter()
-    try:
-        trace = Trace(prof)
-        read_s = time.perf_counter() - t0
+    trace = Trace(prof)
+    read_s = time.perf_counter() - t0
+    if not _trace_checked:
         check = check_trace(trace, prof)
-    except Exception as exc:        # a kineto call this torch lacks
-        trace, read_s, check = None, None, {"ok": False, "error": repr(exc)}
-    _trace_checked.append(check)
-    emit({"phase": "trace_reader_check", **check, "read_seconds": read_s,
-          "shapes": shapes})
-    return trace if check["ok"] else Trace.from_events(prof)
+        _trace_checked.append(check)
+        emit({"phase": "trace_reader_check", **check,
+              "read_seconds": read_s, "shapes": shapes})
+        require(check["ok"], ("the kineto trace reader differs from "
+                              "prof.events()", check))
+    return trace
 
 
 def trace_calls(fn, calls: int, shapes: bool = False):
@@ -4990,7 +4989,7 @@ def phase_soak_nyu(dev, tmp: str, nyu_zip: str) -> None:
 # --- phase 18: the sparsity curve ---------------------------------------------
 
 SWEEP_NYU_TRAIN_STEPS = 10          # cut from 300 to fit the time limit
-SWEEP_KITTI_TRAIN_STEPS = 30        # cut from 300 to fit the time limit
+SWEEP_KITTI_TRAIN_STEPS = 100       # cut from 300 to fit the time limit
 
 
 def run_sweep(argv, dev) -> dict:
@@ -5316,8 +5315,8 @@ def phase_serving_tools(dev, eval_root: str, folder18: str, folder50: str,
     cells = {"artifact_b1": call(served1, x1), "direct_b1": call(program, x1),
              "artifact_b16": call(served16, x16),
              "direct_b16": call(program, x16)}
-    timed = measure(cells, {"artifact_b1": 10, "direct_b1": 10,
-                            "artifact_b16": 5, "direct_b16": 5}, 3, dev)
+    timed = measure(cells, {"artifact_b1": 30, "direct_b1": 30,
+                            "artifact_b16": 10, "direct_b16": 10}, 3, dev)
     emit({"phase": "serving_timing", "model": "kitti_r18_640x192_f32",
           "cells": timed,
           "artifact_over_direct_b1": ratio(timed, "artifact_b1",
@@ -5616,7 +5615,7 @@ def rank_jobs(rank: int, world: int, jobs: list) -> None:
 
 def run_rank_jobs(jobs: list, tmp: str, while_running=None):
     """DDP_RANKS processes of rank_jobs on the one card (gloo: the ranks
-    share it), each with its own log; while_running() runs in this
+    share it), each with its own log; while_running(procs) runs in this
     process meanwhile. A rank that fails or outlasts DDP_TIMEOUT fails
     the phase (the others are killed), and every failed rank's log ends
     the message. Returns ({job's out name: the ranks' records}, what
@@ -5638,7 +5637,7 @@ def run_rank_jobs(jobs: list, tmp: str, while_running=None):
                 [sys.executable, "-c", code], cwd=REPO, stdout=logs[-1],
                 stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL))
         if while_running is not None:
-            extra = while_running()
+            extra = while_running(procs)
         deadline = time.time() + DDP_TIMEOUT
         for p in procs:
             p.wait(timeout=max(deadline - time.time(), 1))
@@ -5791,8 +5790,31 @@ def _grad_groups(grads: dict) -> dict:
     return {m: torch.cat(v) for m, v in out.items()}
 
 
-def ddp_compare(family: str, recs: list, ref: dict, seconds: float) -> dict:
-    """The checks of the ddp phase, and its line."""
+def wait_for_files(paths: list, procs: list, timeout: float) -> bool:
+    """True once every path exists; False as soon as a process of procs
+    has exited while one is missing, or after timeout seconds."""
+    deadline = time.time() + timeout
+    while not all(os.path.exists(p) for p in paths):
+        if time.time() > deadline or any(p.poll() is not None
+                                         for p in procs):
+            return False
+        time.sleep(0.5)
+    return True
+
+
+def launcher_overlap_s(window, recs: list, start: str, end: str) -> list:
+    """Per rank, the seconds by which the --data_axis launcher's run
+    (window: its start and end, time.time()) overlapped the rank's marks
+    start..end: the time its timings shared the card with the launcher's
+    two ranks."""
+    return [max(0.0, min(window[1], rec["clock"][end])
+                - max(window[0], rec["clock"][start])) for rec in recs]
+
+
+def ddp_compare(family: str, recs: list, ref: dict, seconds: float,
+                launcher) -> dict:
+    """The checks of the ddp phase, and its line (launcher: the
+    --data_axis launcher's window, launcher_overlap_s)."""
     import statistics as st
     import torch
     steps = len(ref["losses"])
@@ -5854,6 +5876,8 @@ def ddp_compare(family: str, recs: list, ref: dict, seconds: float) -> dict:
             "allreduce_ms": allreduce_ms,
             "allreduce_share": [a / s for a, s in zip(allreduce_ms, rank_ms)],
             "launch_seconds": seconds,
+            "launcher_overlap_s": launcher_overlap_s(
+                launcher, recs, "entered", "main_returned"),
             "rank_timelines_s": [rec["timeline_s"] for rec in recs], **_card}
     emit(line)
     # the hint term's argmin flips where two warps nearly tie, so float32
@@ -5906,7 +5930,7 @@ def ddp_launcher(dev, root: str, tmp: str) -> None:
           "loss": summary["losses"][0]["loss"], "seconds": seconds})
 
 
-def ddp_check(family: str, argv: list, recs: list, dev) -> dict:
+def ddp_check(family: str, argv: list, recs: list, dev, launcher) -> dict:
     """The one-rank reference and the checks of one family's two-rank
     run; returns rank 0's K3 launches."""
     import numpy as np
@@ -5920,53 +5944,55 @@ def ddp_check(family: str, argv: list, recs: list, dev) -> dict:
     torch.cuda.empty_cache()
     # the job's wall: its start in rank 0 to main's return there
     t = recs[0]["timeline_s"]
-    ddp_compare(family, recs, ref, t["main_returned"] - t["entered"])
+    ddp_compare(family, recs, ref, t["main_returned"] - t["entered"],
+                launcher)
     return recs[0]["launches"]
 
 
-def phase_ddp(dev, root: str, tmp: str, nyu_zip: str = None):
+def phase_ddp(dev, root: str, tmp: str, nyu_zip: str):
     """Data-parallel training on the one card (module docstring, phase
     21), and phase 22's spatial forwards in the same two rank processes
     after it. Returns K3's launches per rank of the KITTI run and the
     spatial path's launches per rank. nyu_zip: phase 13's zip, whose
-    first DDP_NYU_FRAMES frames are the ones fabricate_nyu would make
-    (else they are fabricated)."""
+    first DDP_NYU_FRAMES frames are the ones fabricate_nyu would make."""
     import torch
-    from wavelet_monodepth_tpu_torch.data import synth
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()        # the ranks' memory is the card's too
     zip_path = os.path.join(tmp, "ddp_nyu.zip")
-    if nyu_zip:
-        repeat_nyu_zip(nyu_zip, zip_path, DDP_NYU_FRAMES)
-    else:
-        synth.fabricate_nyu(zip_path, n_train=DDP_NYU_FRAMES)
+    repeat_nyu_zip(nyu_zip, zip_path, DDP_NYU_FRAMES)
     argv = {"kitti": train_argv(root, os.path.join(tmp, "ddp_log")),
             "nyu": ddp_nyu_argv(zip_path, os.path.join(tmp, "ddp_nyu_log"))}
     jobs = [("ddp", family, argv[family], _free_port(), family)
             for family in ("kitti", "nyu")]
     jobs.append(("spatial", _free_port(), "spatial"))
+    launcher = []
 
-    def while_running():
+    def while_running(procs):
         refs = spatial_references(dev)
         # the --data_axis launcher once the ranks' KITTI run has written
         # its records: its two ranks then share the card with the ranks'
-        # NYU and spatial jobs (whose per-rank times are information
-        # only), not with the KITTI steps
-        deadline = time.time() + DDP_TIMEOUT
-        while time.time() < deadline and not all(
-                os.path.exists(os.path.join(tmp, f"kitti_rank{r}.pt"))
-                for r in range(DDP_RANKS)):
-            time.sleep(0.5)
+        # NYU and spatial jobs, whose lines give the overlap
+        # (launcher_overlap_s), not with the KITTI steps. A rank that has
+        # exited before then has failed: run_rank_jobs says how.
+        if not wait_for_files([os.path.join(tmp, f"kitti_rank{r}.pt")
+                               for r in range(DDP_RANKS)], procs,
+                              DDP_TIMEOUT):
+            return refs
+        t0 = time.time()
         ddp_launcher(dev, root, tmp)
+        launcher.extend((t0, time.time()))
         return refs
     recs, refs = run_rank_jobs(jobs, tmp, while_running=while_running)
-    launches = ddp_check("kitti", argv["kitti"], recs["kitti"], dev)
+    require(launcher, "the --data_axis launcher did not run: the ranks' "
+                      "KITTI records never appeared")
+    launches = ddp_check("kitti", argv["kitti"], recs["kitti"], dev,
+                         launcher)
     # per rank: 5 forward + 4 backward per step, 5 forward for validation
     require(launches == {"banded_warp_fwd": 5 * 4, "banded_warp_bwd": 4 * 3},
             ("K3 launches per rank", launches))
-    ddp_check("nyu", argv["nyu"], recs["nyu"], dev)
+    ddp_check("nyu", argv["nyu"], recs["nyu"], dev, launcher)
     emit({"phase": "ddp", "seconds": time.perf_counter() - t_phase})
-    return launches, spatial_check(dev, refs, recs["spatial"])
+    return launches, spatial_check(dev, refs, recs["spatial"], launcher)
 
 
 # --- phase 22: spatial ------------------------------------------------------
@@ -6294,7 +6320,7 @@ def spatial_nyu_vs_xla(ours: dict, refs: dict, model: str, xla: str
             ops_equal, "tol": TOL, "ok": gap <= TOL and ops_equal}
 
 
-def spatial_model_check(dev, refs: dict, recs: list) -> dict:
+def spatial_model_check(dev, refs: dict, recs: list, launcher) -> dict:
     """Phase 22's lines of SPATIAL_MODEL_CASES: each case of the ranks
     against the one-card forward of its model (the ranks bitwise equal;
     disp within SPATIAL_DISP_LIMIT or 3x the model's B=2 floor; masks
@@ -6329,7 +6355,9 @@ def spatial_model_check(dev, refs: dict, recs: list) -> dict:
                "launches_per_rank": [rec["launches"][name] for rec in recs],
                "launches_one_card": refs["launches"][name],
                "ms_two_ranks": [rec["ms"][name] for rec in recs],
-               "ms_one_card": one_ms[name]}
+               "ms_one_card": one_ms[name],
+               "launcher_overlap_s": launcher_overlap_s(
+                   launcher, recs, "kitti_done", "done")}
         if "thresh_ratio" in kw:
             row["density"] = [float(ref0[("wavelet_mask", s)].mean())
                               for s in ((1, 0) if nyu else (2, 1, 0))]
@@ -6381,7 +6409,7 @@ def spatial_model_check(dev, refs: dict, recs: list) -> dict:
     return launches
 
 
-def spatial_check(dev, refs: dict, recs: list) -> dict:
+def spatial_check(dev, refs: dict, recs: list, launcher) -> dict:
     """Phase 22's checks and lines: the ranks' records (spatial_rank)
     against the one-card references (spatial_references), each kernel
     case also against the one-card xla answer (spatial_vs_xla), then the
@@ -6423,7 +6451,9 @@ def spatial_check(dev, refs: dict, recs: list) -> dict:
                [rec["launches"][name] for rec in recs],
                "launches_one_card": refs["launches"][name],
                "ms_two_ranks": [rec["ms"][name] for rec in recs],
-               "ms_one_card": one_ms[name]}
+               "ms_one_card": one_ms[name],
+               "launcher_overlap_s": launcher_overlap_s(
+                   launcher, recs, "ready", "kitti_done")}
         for rec in recs[1:]:
             require(all(torch.equal(rec["cases"][name][k],
                                     recs[0]["cases"][name][k])
@@ -6462,7 +6492,7 @@ def spatial_check(dev, refs: dict, recs: list) -> dict:
             require(n > 0 and all(rec["launches"][name][kern] == n
                                   for rec in recs),
                     ("spatial launches", name, kern, row))
-    models = spatial_model_check(dev, refs, recs)
+    models = spatial_model_check(dev, refs, recs, launcher)
     emit({"phase": "spatial", "rank_timelines_s":
           [rec["timeline_s"] for rec in recs], **_card})
     refs.clear()

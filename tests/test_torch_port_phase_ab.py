@@ -19,9 +19,12 @@ import chip_smoke  # noqa: E402
 
 def test_arguments():
     args = phase_ab.parse_args(["a", "b", "b", "a"])
-    assert args.trees == ["a", "b", "b", "a"] and args.phase == "ddp"
+    assert args.trees == ["a", "b", "b", "a"] and args.phases == ["ddp"]
     args = phase_ab.parse_args(["--phase", "nyu", "--timeout", "60", "x"])
-    assert (args.phase, args.timeout, args.trees) == ("nyu", 60.0, ["x"])
+    assert (args.phases, args.timeout, args.trees) == (["nyu"], 60.0, ["x"])
+    args = phase_ab.parse_args(["--phase", "nyu", "--phase", "nyu_train",
+                                "a", "b"])
+    assert args.phases == ["nyu", "nyu_train"]
     assert phase_ab.parse_args(["--list"]).list
     assert phase_ab.parse_args(["--table", "a", "b"]).table == ["a", "b"]
     for bad in (["--phase", "no_such_phase", "x"], [], ["--phase", "nyu"]):
@@ -41,7 +44,7 @@ def test_script_calls_chip_smoke_s_phase(phase):
     """The program compiles, sets up what the phase needs before the
     clock starts, and every chip_smoke function it calls exists and takes
     the arguments it is given; the phase's call is the one timed."""
-    src = phase_ab.script(phase)
+    src = phase_ab.script([phase])
     tree = ast.parse(src)
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
              and isinstance(n.func, ast.Attribute)
@@ -53,11 +56,31 @@ def test_script_calls_chip_smoke_s_phase(phase):
         inspect.signature(fn).bind(*node.args)
     _, call = phase_ab.PHASES[phase]
     t0 = src.index("t0 = time.perf_counter()")
-    assert src.index(call) > t0 > src.index("cs.phase_build()")
+    assert src.index(call) > t0 > src.index("cs.trace_calls(") > \
+        src.index("cs.phase_build()") > src.index("cs.start_data(tmp)")
     assert src.index("seconds = time.perf_counter() - t0") > src.index(call)
     assert f'"phase_name": {phase!r}' in src
     for need in phase_ab.PHASES[phase][0]:
         assert src.index(phase_ab.SETUP[need][0]) < t0
+
+
+def test_script_times_each_phase_in_turn():
+    """Several phases: what any of them needs is set up once before the
+    first clock starts, then each phase's call is timed on its own, in
+    the order given."""
+    phases = ["nyu", "nyu_train", "kitti_hr_train"]
+    src = phase_ab.script(phases)
+    ast.parse(src)
+    first = src.index("t0 = time.perf_counter()")
+    assert src.index(phase_ab.SETUP["kitti"][1]) < first
+    at = 0
+    for phase in phases:
+        t0 = src.index("t0 = time.perf_counter()", at)
+        call = src.index(phase_ab.PHASES[phase][1], t0)
+        end = src.index("seconds = time.perf_counter() - t0", call)
+        assert src.index(f'"phase_name": {phase!r}', end) > end
+        at = end
+    assert src.count("t0 = time.perf_counter()") == len(phases)
 
 
 def test_table_of_a_run(tmp_path, capsys):

@@ -233,5 +233,6 @@ def test_trainer_arguments_are_the_harness_s():
     assert flags(ours, set())["--encoder_type"] == "densenet"
     assert soak_nyu.config_of(args) == \
         "NYU DN161 640x480 b8 bf16-mp wavelets uint8-feed"
-    assert (args.epochs, args.n_train, args.interval,
-            args.trend_factor) == (h.EPOCHS, h.N_TRAIN, 10.0, h.TREND_FACTOR)
+    assert (args.epochs, args.n_train, args.interval, soak_nyu.TREND_FACTOR,
+            soak_nyu.ARENA_MAX) == (h.EPOCHS, h.N_TRAIN, 10.0, h.TREND_FACTOR,
+                                    h.ARENA_MAX)

@@ -1,21 +1,28 @@
-"""A/B timing of one of chip_smoke.py's phases between source trees of
-this repo, on one CUDA card.
+"""A/B timing of chip_smoke.py's phases between source trees of this
+repo, on one CUDA card.
 
 Each tree runs in its own process, from its own directory, with its own
 chip_smoke.py and package, and nothing built (its `_build/` is removed
-first): the device, the four kernel sources (`phase_build`), what the
-phase needs from earlier phases (the 36-pair synthetic KITTI mount, a
-training checkpoint, the eval mount, an NYU zip, the soak's checkpoint;
-PHASES below), untimed, then the phase, timed on the host clock. The
-trees run in the order given, so `A B B A` interleaves two of them; whole
-chip_smoke runs move by up to a minute with the host, a phase alone in
-turns by seconds. Per run it prints the tree's phase lines and one JSON
-line {"phase": "phase_ab", "tree": ..., "phase_name": ..., "seconds":
-...}; the last line is a summary: per tree, its runs' seconds.
+first). Untimed, as the tree's chip_smoke would have it before the
+phase: its data workers where it has them (`start_data`, forked before
+torch is imported, done before the clock starts), the device, the four
+kernel sources (`phase_build`), what the phases need from earlier phases
+(the 36-pair synthetic KITTI mount, a training checkpoint, the eval
+mount, an NYU zip, the soak's checkpoint; PHASES below), and one tiny
+torch.profiler trace (the profiler's one-time start-up, and the run's
+first trace, which a tree that reads traces from the kineto results
+checks against prof.events()). Then each phase in the order given,
+timed on the host clock. The trees run in the order given, so `A B B A`
+interleaves two of them; whole chip_smoke runs move by up to a minute
+with the host, a phase alone in turns by seconds. Per run it prints the
+tree's phase lines and, per phase, one JSON line {"phase": "phase_ab",
+"tree": ..., "phase_name": ..., "seconds": ...}; the last line is a
+summary: per tree and phase, its runs' seconds.
 
---phase names the phase (default: ddp, phases 21-22 in one launch of the
-two rank processes); `--list` prints the names. A phase that a tree's
-chip_smoke.py lacks fails that tree's run.
+--phase names a phase, and may be given more than once (default: ddp,
+phases 21-22 in one launch of the two rank processes); `--list` prints
+the names. A phase that a tree's chip_smoke.py lacks fails that tree's
+run.
 
 `--table OUT.jsonl ...` reads whole chip_smoke runs' stdout instead and
 prints, per run, each phase's seconds (from consecutive "t"s: a phase
@@ -25,7 +32,7 @@ Usage, from the repo root on a machine with a card (any git-ignored
 directory holds the other tree):
   mkdir -p _archive/parent && git archive HEAD~1 | tar x -C _archive/parent
   python3 wavelet_monodepth_tpu_torch/tools/phase_ab.py --phase nyu \\
-      _archive/parent . . _archive/parent
+      --phase nyu_train _archive/parent . . _archive/parent
   python3 wavelet_monodepth_tpu_torch/tools/phase_ab.py --table \\
       parent.jsonl final.jsonl
 """
@@ -40,17 +47,22 @@ import subprocess
 import sys
 
 # what a phase needs from earlier phases: the lines that make it, in the
-# order of NEEDS, inside the temporary directory `tmp`
+# order of NEEDS, inside the temporary directory `tmp` (`made`: the data
+# workers' result where the tree has them)
 SETUP = {
     "kitti": ['root = os.path.join(tmp, "kitti")',
-              "cs.write_kitti_mount(root, 36, cs.TRAIN_B)"],
+              "made(cs.write_kitti_mount, root, 36, cs.TRAIN_B)"],
     "ckpt": ["warp_launches, ckpt = cs.phase_train_slice(",
              '    dev, root, os.path.join(tmp, "log"))'],
     "eval": ["eval_root, folder18 = cs.phase_eval(dev, ckpt, tmp)"],
     "soak": ["cs.phase_soak(dev, root, tmp)"],
-    "nyu_zip": ["from wavelet_monodepth_tpu_torch.data import synth",
-                'nyu_zip = os.path.join(tmp, "nyu_data.zip")',
-                "synth.fabricate_nyu(nyu_zip, n_train=cs.NYU_TRAIN_FRAMES)"],
+    "nyu_zip": ['nyu_zip = os.path.join(tmp, "nyu_data.zip")',
+                'if hasattr(cs, "write_nyu_zip"):',
+                "    made(cs.write_nyu_zip, nyu_zip)",
+                "else:",
+                "    from wavelet_monodepth_tpu_torch.data import synth",
+                "    synth.fabricate_nyu(nyu_zip, "
+                "n_train=cs.NYU_TRAIN_FRAMES)"],
     "models": ["enc, dec = cs.build_models(dev)"],
 }
 NEEDS = ("kitti", "ckpt", "eval", "soak", "nyu_zip", "models")
@@ -87,7 +99,7 @@ PHASES = {
     "serving_tools": (("kitti", "ckpt", "eval"),
                       "cs.phase_serving_tools(dev, eval_root, folder18, "
                       "os.path.join(tmp, cs.EVAL_CONFIGS[1][0]), tmp)"),
-    "ddp": (("kitti",), "cs.phase_ddp(dev, root, tmp)"),
+    "ddp": (("kitti", "nyu_zip"), "cs.phase_ddp(dev, root, tmp, nyu_zip)"),
 }
 
 # chip_smoke's phases in the order it runs them, each by the "phase" of
@@ -145,48 +157,69 @@ RUN = """
 import collections, json, os, sys, tempfile, time
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs
-dev = cs.phase_device()
-cs.phase_build()
-errs = collections.defaultdict(float)
-kernel_ms = collections.defaultdict(lambda: collections.defaultdict(float))
+made = getattr(cs, "made", lambda fn, *args: (fn(*args), None))
 with tempfile.TemporaryDirectory(prefix="phase_ab_") as tmp:
+    pool = cs.start_data(tmp) if hasattr(cs, "start_data") else None
+    dev = cs.phase_device()
+    import torch
+    cs.phase_build()
+    if pool is not None:
+        cs.finish_data(pool)
+    errs = collections.defaultdict(float)
+    kernel_ms = collections.defaultdict(
+        lambda: collections.defaultdict(float))
 {setup}
-    t0 = time.perf_counter()
-    {call}
-    seconds = time.perf_counter() - t0
-print(json.dumps({{"phase": "phase_ab", "tree": os.getcwd(),
-                  "phase_name": {name!r}, "seconds": seconds}}), flush=True)
+    cs.trace_calls(lambda: torch.zeros(1, device=dev).add_(1), 1)
+{timed}
 """
 
+TIMED = """    t0 = time.perf_counter()
+    {call}
+    seconds = time.perf_counter() - t0
+    print(json.dumps({{"phase": "phase_ab", "tree": os.getcwd(),
+                      "phase_name": {name!r}, "seconds": seconds}}),
+          flush=True)"""
 
-def script(phase: str) -> str:
-    """The program that sets up and times `phase` in a tree."""
-    needs, call = PHASES[phase]
+
+def script(phases: list) -> str:
+    """The program that sets up `phases` in a tree and times each."""
+    needs = {need for phase in phases for need in PHASES[phase][0]}
     lines = [ln for need in NEEDS if need in needs for ln in SETUP[need]]
     setup = "\n".join("    " + ln for ln in lines) or "    pass"
-    return RUN.format(setup=setup, call=call, name=phase)
+    timed = "\n".join(TIMED.format(call=PHASES[phase][1], name=phase)
+                      for phase in phases)
+    return RUN.format(setup=setup, timed=timed)
 
 
-def run_tree(tree: str, phase: str, timeout: float) -> float:
-    """The phase's seconds in `tree`, its output passed through."""
+def run_tree(tree: str, phases: list, timeout: float) -> dict:
+    """{phase: its seconds} in `tree`, its output passed through."""
     shutil.rmtree(os.path.join(tree, "wavelet_monodepth_tpu_torch",
                                "_build"), ignore_errors=True)
-    out = subprocess.run([sys.executable, "-c", script(phase)], cwd=tree,
+    out = subprocess.run([sys.executable, "-c", script(phases)], cwd=tree,
                          stdout=subprocess.PIPE, text=True,
                          stdin=subprocess.DEVNULL, timeout=timeout)
     print(out.stdout, end="", flush=True)
     if out.returncode != 0:
         raise SystemExit(f"phase_ab: {tree} exited with {out.returncode}")
-    last = json.loads(out.stdout.strip().splitlines()[-1])
-    return last["seconds"]
+    seconds = {}
+    for line in out.stdout.splitlines():
+        try:
+            obj = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(obj, dict) and obj.get("phase") == "phase_ab":
+            seconds[obj["phase_name"]] = obj["seconds"]
+    return seconds
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*",
                     help="tree directories, in the order to run them")
-    ap.add_argument("--phase", default="ddp", choices=sorted(PHASES),
-                    help="the chip_smoke phase to time (default: ddp)")
+    ap.add_argument("--phase", dest="phases", action="append",
+                    choices=sorted(PHASES),
+                    help="a chip_smoke phase to time, in the order given; "
+                         "repeat for more (default: ddp)")
     ap.add_argument("--list", action="store_true",
                     help="print the phases and what each needs, and exit")
     ap.add_argument("--timeout", type=float, default=900.0,
@@ -195,6 +228,7 @@ def parse_args(argv=None):
                     help="print each chip_smoke run's phase seconds and "
                          "exit")
     args = ap.parse_args(argv)
+    args.phases = args.phases or ["ddp"]
     if not args.trees and not args.list and not args.table:
         ap.error("name at least one tree")
     return args
@@ -215,10 +249,10 @@ def main(argv=None) -> int:
     seconds = {}
     for tree in args.trees:
         path = os.path.abspath(tree)
-        seconds.setdefault(path, []).append(
-            run_tree(path, args.phase, args.timeout))
+        for phase, s in run_tree(path, args.phases, args.timeout).items():
+            seconds.setdefault(path, {}).setdefault(phase, []).append(s)
     print(json.dumps({"phase_ab_summary": seconds,
-                      "phase_name": args.phase}), flush=True)
+                      "phase_names": args.phases}), flush=True)
     return 0
 
 

@@ -13,7 +13,7 @@ monitor). Afterwards it reads the console log and the samples and writes
 one JSON to --out with the JAX harness's keys and its six checks,
 computed as the harness computes them: completed, all_losses_finite,
 loss_trending_down (the lower of the last two epoch means below
---trend_factor times the first), final_checkpoint_exists,
+TREND_FACTOR, 0.9, times the first), final_checkpoint_exists,
 tb_events_exist and rss_stable (the second half of the samples stays
 below 1.25x the first half's peak). Beside them: the per-line step
 time, the anonymous memory with its slope after the start-up's ramp, and
@@ -25,7 +25,9 @@ computes it: the median logged `Time` divided by 5. Each logged `Time`
 covers one step (the trainer resets its clock after every step), so the
 step itself is `median_step_s_per_line`.
 
-There is no kill and no resume, as in the JAX harness. It writes the
+The trainer's MALLOC_ARENA_MAX is the harness's: WMD_NYU_ARENA_MAX
+from the environment, where it is set. There is no kill and no resume,
+as in the JAX harness. It writes the
 JSON to --out, and the trainer's checkpoints and console log under
 --log_dir, nothing else. The trainer runs on --device (cuda, which
 raises without a card, or cpu).
@@ -56,6 +58,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 LINE_RE = re.compile(r"Epoch: \[(\d+)\]\[(\d+)/(\d+)\]\t"
                      r"Time ([0-9.]+)\t Loss ([0-9.naninf-]+)")
+TREND_FACTOR = 0.9                    # the JAX harness's
+ARENA_MAX = os.environ.get("WMD_NYU_ARENA_MAX", "")
 ENCODER_NAMES = {"densenet": "DN161", "mobilenet": "MobileNetV2",
                  "mobilenet_light": "MobileNetV2-light"}
 
@@ -78,11 +82,8 @@ def parse_args(argv=None):
     p.add_argument("--encoder_type", default="densenet")
     p.add_argument("--use_224", action="store_true")
     p.add_argument("--no-bfloat16", dest="bfloat16", action="store_false")
-    p.add_argument("--trend_factor", type=float, default=0.9)
     p.add_argument("--interval", type=float, default=10.0,
                    help="seconds between memory samples")
-    p.add_argument("--arena_max", type=str, default="",
-                   help="MALLOC_ARENA_MAX for the trainer")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without a card) or cpu")
     args = p.parse_args(argv)
@@ -135,7 +136,7 @@ def trending_down(epoch_mean: dict, factor: float) -> bool:
 
 def analyse(log: str, samples: list, *, epochs: int, steps_per_epoch: int,
             rc: int, final_checkpoint: bool, tb_event_files: list,
-            wall_s: float, config: str, trend_factor: float = 0.9,
+            wall_s: float, config: str, trend_factor: float = TREND_FACTOR,
             arena_max=None, memory_source: str = "smaps_rollup",
             tensorboardx_available: bool = True) -> dict:
     """The JAX harness's summary and checks (`tools_dev/
@@ -229,8 +230,8 @@ def main(argv=None) -> dict:
     print(f"[soak-nyu] launching trainer ({args.epochs} epochs x "
           f"{steps_per_epoch} steps)", flush=True)
     env = dict(os.environ)
-    if args.arena_max:
-        env["MALLOC_ARENA_MAX"] = args.arena_max
+    if ARENA_MAX:
+        env["MALLOC_ARENA_MAX"] = ARENA_MAX
     with open(console, "ab", buffering=0) as logf:
         proc = subprocess.Popen(
             [sys.executable, "-m",
@@ -258,7 +259,7 @@ def main(argv=None) -> dict:
             for f in os.listdir(os.path.join(run_dir, m))
             if "tfevents" in f),
         wall_s=wall, config=config_of(args),
-        trend_factor=args.trend_factor, arena_max=args.arena_max,
+        arena_max=ARENA_MAX,
         memory_source=source,
         tensorboardx_available=has_tensorboardx())
     summary["device"] = args.device
