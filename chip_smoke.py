@@ -314,7 +314,9 @@ phases; any failure raises and exits non-zero:
      _error key, KITTI densities in 0.09-0.11. (f) tools/profile_device.
      main, R18 640x192 B=16 dense and --threshold 0.2: the printed rows
      sum to the total within 1%, UNATTRIBUTED under 5% of it, the total
-     within [0.5, 1.05] of the same forward's CUDA-event time. (g)
+     within [0.5, 1.05] of the same forward's CUDA-event time, queued
+     behind a device-side sleep so the events time the card and not a
+     busy host's launches (the host-paced time is printed beside it). (g)
      tools/golden_check with no mount (11 absent, exit 0; 1 with
      --require_all) and with WMD_KITTI_DATA / WMD_KITTI_WEIGHTS /
      WMD_KITTI_WEIGHTS_R50_1024 on the mount and folders (each [ OK ] or
@@ -1544,6 +1546,34 @@ def phase_fused_stage(dev, enc, dec, errs):
 # (a train step, an FFT-picked conv) gets fewer calls per window than
 # asked, at least one (the script's 1200 s limit)
 WINDOW_MS = 50.0
+# the shortest device-side sleep ahead of a queued window (~10 ms)
+QUEUE_AHEAD_CYCLES = 20_000_000
+_sleep_cycles_per_ms = []
+
+
+def queue_ahead_cycles(window_host_ms: float, cycles_per_ms: float) -> int:
+    """The sleep ahead of a queued window: QUEUE_AHEAD_CYCLES, or 1.5x the
+    host time of the window's calls where that is longer (a forward of
+    hundreds of launches on a busy host), so the host has queued them
+    all before the card wakes."""
+    return max(QUEUE_AHEAD_CYCLES,
+               int(1.5 * window_host_ms * cycles_per_ms))
+
+
+def sleep_cycles_per_ms() -> float:
+    """torch.cuda._sleep's cycles per ms on this card, timed once."""
+    import torch
+    if not _sleep_cycles_per_ms:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        end.record()
+        end.synchronize()
+        _sleep_cycles_per_ms.append(QUEUE_AHEAD_CYCLES
+                                    / start.elapsed_time(end))
+    return _sleep_cycles_per_ms[0]
 
 
 def time_variants(variants: dict, iters: int, windows: int = 3,
@@ -1553,12 +1583,14 @@ def time_variants(variants: dict, iters: int, windows: int = 3,
     FFT-picked conv), then `windows` windows of up to `iters` calls (as
     many as fit in WINDOW_MS, at least one) timed with CUDA events,
     interleaved (a, b, b, a, ...); "calls_per_window" says how many.
-    queue_ahead: each window starts behind a ~10 ms device-side sleep, so
-    the host queues all its calls before the card reaches them and the
-    events time the device, not the launch overhead (for kernels of tens
-    of microseconds)."""
+    queue_ahead: each window starts behind a device-side sleep of at
+    least ~10 ms and at least 1.5x the window's host time as the warm-up
+    measured it (queue_ahead_cycles), so the host queues all its calls
+    before the card reaches them and the events time the device, not the
+    launch overhead (kernels of tens of microseconds; a forward on a busy
+    host)."""
     import torch
-    calls = {}
+    calls, host_ms = {}, {}
     for k, fn in variants.items():
         for _ in range(2):
             torch.cuda.synchronize()
@@ -1569,6 +1601,7 @@ def time_variants(variants: dict, iters: int, windows: int = 3,
             if call_ms >= WINDOW_MS:
                 break
         calls[k] = max(1, min(iters, int(WINDOW_MS / max(call_ms, 1e-3))))
+        host_ms[k] = calls[k] * call_ms
     ms = {k: [] for k in variants}
     order = list(variants)
     for wi in range(windows):
@@ -1576,7 +1609,8 @@ def time_variants(variants: dict, iters: int, windows: int = 3,
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             if queue_ahead:
-                torch.cuda._sleep(20_000_000)
+                torch.cuda._sleep(queue_ahead_cycles(
+                    host_ms[k], sleep_cycles_per_ms()))
             start.record()
             for _ in range(calls[k]):
                 variants[k]()
@@ -5351,7 +5385,11 @@ def phase_serving_tools(dev, eval_root: str, folder18: str, folder50: str,
         printed = sum(float(ln.split()[0])
                       for ln in buf.getvalue().splitlines()[1:])
         fwd, _ = pd.build_forward(pd.parse_args(argv), dev)
-        event_ms = time_variants({"forward": fwd}, iters=8)["forward"]
+        # the forward's device time, queued ahead (a busy host's launches
+        # do not pace it), and, information only, as the host paces it
+        event_ms = time_variants({"forward": fwd}, iters=8,
+                                 queue_ahead=True)["forward"]
+        paced_ms = time_variants({"forward": fwd}, iters=8)["forward"]
         # the same forward in a plain trace (no ranges): the union of its
         # device spans, the busy time the rows should add up to
         _, by_kernel, _, busy, _, _ = trace_calls(fwd, 8)
@@ -5364,6 +5402,8 @@ def phase_serving_tools(dev, eval_root: str, folder18: str, folder50: str,
                 / total,
                 "forward_event_ms": event_ms,
                 "total_over_event_ms": total / event_ms["ms_median"],
+                "forward_host_paced_ms": paced_ms,
+                "total_over_host_paced_ms": total / paced_ms["ms_median"],
                 "plain_trace_busy_ms": busy / 8e3,
                 "plain_trace_kernels": sum(v[0] for v in by_kernel.values())
                 / 8,

@@ -2,7 +2,8 @@
 (`Trace`, read from torch.profiler's kineto results) against
 prof.events() on a CPU profile, the run's first-trace check as a
 `require`, and the ddp phase's wait for the ranks' records and its
-overlap of the --data_axis launcher with the ranks' timings."""
+overlap of the --data_axis launcher with the ranks' timings, and the
+sleep ahead of a queued timing window."""
 
 import os
 import subprocess
@@ -94,3 +95,17 @@ def test_launcher_overlap_s(window, want):
             {"clock": {"ready": 10.5, "done": 15.0}}]
     got = chip_smoke.launcher_overlap_s(window, recs, "ready", "done")
     assert got == pytest.approx(want)
+
+
+@pytest.mark.parametrize("window_host_ms, cycles_per_ms, want", [
+    (0.5, 1.98e6, chip_smoke.QUEUE_AHEAD_CYCLES),   # kernels: the floor
+    (42.5, 1.98e6, int(1.5 * 42.5 * 1.98e6)),       # a host-paced forward
+    (100.0, 1.0e6, int(1.5e8)),
+])
+def test_queue_ahead_cycles(window_host_ms, cycles_per_ms, want):
+    """The sleep ahead of a queued window covers 1.5x the window's host
+    time, and never falls below the ~10 ms floor."""
+    got = chip_smoke.queue_ahead_cycles(window_host_ms, cycles_per_ms)
+    assert got == want
+    assert got >= chip_smoke.QUEUE_AHEAD_CYCLES
+    assert got >= window_host_ms * cycles_per_ms
